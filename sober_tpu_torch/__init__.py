@@ -1,0 +1,23 @@
+"""sober_tpu_torch: the PyTorch/CUDA port of sober_tpu for NVIDIA Hopper.
+
+Module names mirror `sober_tpu/`. The package imports torch and never jax.
+Its hand-written CUDA kernels (`csrc/`) are built at first use by
+`ops/_build.py`; on CPU tensors every kernel wrapper computes its plain
+PyTorch reference instead.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Quadrature weights, GP posteriors and Caratheodory eliminations are
+# precision-critical: lower-precision matmuls measurably degrade batch
+# selection (sober_tpu/__init__.py). TF32 keeps ~3 decimal digits, so it is
+# off for matmuls and convolutions alike.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from .config import Settings, settings  # noqa: E402
+
+__all__ = ["Settings", "settings", "__version__"]

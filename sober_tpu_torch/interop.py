@@ -1,0 +1,62 @@
+"""Carry a fitted GP across from the JAX package.
+
+The JAX side converts its `GPParams` / `GPState` (and the `Kernel` inside)
+to dicts of numpy arrays; these functions turn such dicts into the port's
+`GPParams` / `GPState` on a given device. The dict keys are the field names
+of `sober_tpu.gp.exact.GPParams` / `GPState`, with the kernel given as
+`kernel_name` and `kernel_params` and the config as a dict of `GPConfig`
+fields. Nothing here imports jax.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .gp.exact import GPConfig, GPParams, GPState
+from .ops.kernels import Kernel
+
+_CONFIG_FIELDS = {f.name for f in dataclasses.fields(GPConfig)}
+
+
+def _tensor(a, device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+
+def _no_mean_params(d: dict) -> None:
+    if d.get("mean_params"):
+        raise NotImplementedError("only the zero mean is ported")
+
+
+def gp_params_from_numpy(d: dict, device=None) -> GPParams:
+    """GPParams from {raw_lengthscale, raw_outputscale, raw_noise[,
+    mean_params]} numpy arrays."""
+    _no_mean_params(d)
+    return GPParams(*(_tensor(d[k], device) for k in GPParams._fields))
+
+
+def gp_config_from_dict(d: dict) -> GPConfig:
+    """GPConfig from a dict of sober_tpu GPConfig fields; a field the port
+    lacks must be None (e.g. mean_priors)."""
+    extra = {k: v for k, v in d.items() if k not in _CONFIG_FIELDS}
+    if any(v is not None for v in extra.values()):
+        raise NotImplementedError(f"config fields not ported: {sorted(extra)}")
+    return GPConfig(**{k: v for k, v in d.items() if k in _CONFIG_FIELDS})
+
+
+def gp_state_from_numpy(d: dict, device=None) -> GPState:
+    """GPState from a dict of the fields of sober_tpu's GPState: config
+    (dict), kernel_name, kernel_params (dict), noise, x, y, y_mean, y_std,
+    chol, alpha, mask (or None), linv (or None)[, mean_params]."""
+    _no_mean_params(d)
+    kernel = Kernel(d["kernel_name"],
+                    {k: _tensor(v, device) for k, v in d["kernel_params"].items()})
+    arrays = {k: _tensor(d.get(k), device)
+              for k in ("noise", "x", "y", "y_mean", "y_std", "chol", "alpha",
+                        "mask", "linv")}
+    return GPState(config=gp_config_from_dict(d["config"]), kernel=kernel,
+                   **arrays)

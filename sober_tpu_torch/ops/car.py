@@ -1,0 +1,133 @@
+"""Caratheodory elimination loop.
+
+`car_eliminate` is the port of `sober_tpu/ops/pallas_car.py:
+car_eliminate_pallas`: the n_take sequential eliminations of
+`core/rchq.py:_caratheodory` in one kernel launch. On a CUDA tensor it
+launches the hand-written kernel of `csrc/car_eliminate.cu` or raises; on a
+CPU tensor it runs `car_eliminate_reference`, the same loop in plain
+PyTorch. The algorithm is documented in `csrc/car_eliminate.cu`.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check, load_library
+
+MAX_M = 4096   # csrc/car_eliminate.cu: LPT * MAX_THREADS
+
+
+def car_eliminate_reference(mu: torch.Tensor, big_n: torch.Tensor,
+                            row_mask: torch.Tensor, n_take: int):
+    """Plain PyTorch loop with the kernel's semantics.
+
+    mu (m,) weights, big_n (m, q) null basis (column j = direction j; zero
+    columns are no-ops), row_mask (m,), n_take <= q. Returns (mu', elim).
+    Written in the kernel's transposed-row form: step t reflects rows >= t
+    of the (q, m) basis and then leaves row t behind, which is algebraically
+    the drop-first-column form of `sober_tpu/core/rchq.py:_caratheodory`.
+    """
+    nt = big_n.T.clone()                                  # (q, m)
+    elim = torch.zeros_like(mu)
+    inf = torch.full_like(mu, float("inf"))
+    for t in range(n_take):
+        phi = nt[t]
+        mu = mu * (1.0 - elim)
+        active = (mu > 0) & (row_mask > 0) & (elim < 0.5)
+        has_norm = torch.sum(phi * phi) > 1e-10
+        pos = (phi > 0) & active
+        phi = torch.where(pos.any(), phi, -phi)
+        plis = (phi > 0) & active
+        alpha = torch.where(plis, mu / torch.where(plis, phi, 1.0), inf)
+        idx = torch.argmin(alpha).reshape(1)               # first minimum
+        a_min = alpha[idx]
+        valid = has_norm & plis.any() & torch.isfinite(a_min[0])
+        mu_new = torch.clamp_min(mu - a_min * phi, 0.0).index_fill(0, idx, 0.0)
+        mu = torch.where(valid, mu_new, mu)
+        elim = torch.where(valid, elim.index_fill(0, idx, 1.0), elim)
+        # Householder deflation of rows >= t
+        u = nt[t:, idx][:, 0]
+        unorm = torch.sqrt(torch.sum(u * u))
+        v = u.clone()
+        v[0] += torch.where(u[0] >= 0, unorm, -unorm)
+        vsq = torch.clamp_min(torch.sum(v * v), 1e-30)
+        w_row = v @ nt[t:]
+        nt[t:] -= (valid * 2.0 / vsq) * torch.outer(v, w_row)
+    return mu, elim
+
+
+def reference_horizon(mu: torch.Tensor, big_n: torch.Tensor,
+                      row_mask: torch.Tensor, n_take: int,
+                      tol: float = 1e-6) -> int:
+    """How many steps the float32 reference can be held to exactly.
+
+    The elimination is chaotic in fp32: each step's alpha divides by mu of
+    a lane that earlier steps have whittled down, so rounding in mu grows
+    from step to step, and after a few dozen steps two correct fp32
+    implementations pick different lanes (equally valid results, with the
+    same moments). This returns a step count k <= n_take at which the
+    reference run in float32 and in float64 still agree: the same
+    eliminated lanes and |dmu| <= tol. Up to k, rounding does not yet decide
+    the answer, so a kernel can be compared with the reference exactly.
+    Found by bisection."""
+    def agree(k):
+        m32, e32 = car_eliminate_reference(mu, big_n, row_mask, k)
+        m64, e64 = car_eliminate_reference(mu.double(), big_n.double(),
+                                           row_mask.double(), k)
+        same = bool(torch.equal(e32.double(), e64))
+        return same and float((m32.double() - m64).abs().max()) <= tol
+
+    lo, hi = 0, n_take
+    if agree(hi):
+        return hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if agree(mid) else (lo, mid)
+    return lo
+
+
+def _check_operand(name: str, t: torch.Tensor, shape: tuple,
+                   device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"car_eliminate: {name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"car_eliminate: {name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(
+            f"car_eliminate: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"car_eliminate: {name} must be contiguous")
+
+
+def car_eliminate(mu: torch.Tensor, big_n: torch.Tensor,
+                  row_mask: torch.Tensor, n_take: int):
+    """Run n_take eliminations; returns (mu', elim), both (m,) float32.
+
+    CPU tensors take the reference; CUDA tensors launch the kernel."""
+    if mu.device.type == "cpu":
+        return car_eliminate_reference(mu, big_n, row_mask, n_take)
+    if mu.device.type != "cuda":
+        raise ValueError(f"car_eliminate: unsupported device {mu.device}")
+    if big_n.dim() != 2:
+        raise ValueError(f"car_eliminate: big_n must be (m, q), got {tuple(big_n.shape)}")
+    m, q = big_n.shape
+    if not 0 <= n_take <= q:
+        raise ValueError(f"car_eliminate: n_take={n_take} outside [0, q={q}]")
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"car_eliminate: m={m} outside [1, {MAX_M}]")
+    _check_operand("mu", mu, (m,), mu.device)
+    _check_operand("big_n", big_n, (m, q), mu.device)
+    _check_operand("row_mask", row_mask, (m,), mu.device)
+    scratch = torch.empty((q, m), dtype=torch.float32, device=mu.device)
+    mu_out = torch.empty_like(mu)
+    elim = torch.empty_like(mu)
+    lib = load_library()
+    rc = lib.sober_car_eliminate(
+        mu.data_ptr(), big_n.data_ptr(), row_mask.data_ptr(),
+        scratch.data_ptr(), mu_out.data_ptr(), elim.data_ptr(), 1, m, q,
+        n_take, torch.cuda.current_stream(mu.device).cuda_stream)
+    check(rc, "car_eliminate")
+    car_eliminate.launches += 1
+    return mu_out, elim
+
+
+car_eliminate.launches = 0

@@ -1,0 +1,85 @@
+"""Fused RBF Gram: `outputscale * exp(-0.5 ||x/ls - y/ls||^2)`.
+
+`rbf_gram` is the port of `sober_tpu/ops/pallas_kernels.py:rbf_gram_pallas`.
+On a CUDA tensor it launches the hand-written kernel of `csrc/rbf_gram.cu`
+or raises; on a CPU tensor it computes `rbf_gram_reference`, the plain
+PyTorch version (the norm-trick form of `sober_tpu/ops/kernels.py:rbf_gram`).
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check, load_library
+
+MAX_D = 64   # csrc/rbf_gram.cu: MAX_D
+
+
+def sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared Euclidean distance via ||x||^2 + ||y||^2 - 2 x.y,
+    clamped at 0."""
+    x2 = torch.sum(x * x, dim=-1)
+    y2 = torch.sum(y * y, dim=-1)
+    d2 = x2[:, None] + y2[None, :] - 2.0 * (x @ y.T)
+    return torch.clamp_min(d2, 0.0)
+
+
+def rbf_gram_reference(params: dict, x: torch.Tensor,
+                       y: torch.Tensor) -> torch.Tensor:
+    """Plain, differentiable RBF Gram (the kernel's reference)."""
+    ls = params["lengthscale"]
+    d2 = sqdist(x / ls, y / ls)
+    return params["outputscale"] * torch.exp(-0.5 * d2)
+
+
+def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"rbf_gram: {name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"rbf_gram: {name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"rbf_gram: {name} must be contiguous")
+    if t.requires_grad:
+        raise ValueError(
+            f"rbf_gram: {name} requires grad; the CUDA kernel has no backward "
+            "(use rbf_gram_reference where autograd must flow)")
+
+
+def rbf_gram(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(n, m) RBF Gram of x (n, d) and y (m, d); lengthscale scalar or (d,).
+
+    CPU tensors take the reference; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return rbf_gram_reference(params, x, y)
+    if x.device.type != "cuda":
+        raise ValueError(f"rbf_gram: unsupported device {x.device}")
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(
+            f"rbf_gram: need x (n, d) and y (m, d), got {tuple(x.shape)} "
+            f"and {tuple(y.shape)}")
+    n, d = x.shape
+    m = y.shape[0]
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"rbf_gram: d={d} outside [1, {MAX_D}]")
+    ls = params["lengthscale"]
+    os_ = params["outputscale"]
+    if ls.numel() not in (1, d) or os_.numel() != 1:
+        raise ValueError(
+            f"rbf_gram: lengthscale has {ls.numel()} entries for d={d}, "
+            f"outputscale {os_.numel()}")
+    ls = ls.reshape(-1).expand(d).contiguous() if ls.numel() == 1 else ls
+    for name, t in (("x", x), ("y", y), ("lengthscale", ls),
+                    ("outputscale", os_)):
+        _check_operand(name, t, x.device)
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    if n == 0 or m == 0:
+        return out
+    lib = load_library()
+    rc = lib.sober_rbf_gram(
+        x.data_ptr(), y.data_ptr(), ls.data_ptr(), os_.data_ptr(),
+        out.data_ptr(), n, m, d, torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc, "rbf_gram")
+    rbf_gram.launches += 1
+    return out
+
+
+rbf_gram.launches = 0

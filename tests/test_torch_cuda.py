@@ -1,0 +1,78 @@
+"""The port's CUDA kernels against their plain PyTorch references, on the
+card. Every test is marked `cuda` and skips without a CUDA device. The file
+imports no jax, so it also runs where jax is not installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from sober_tpu_torch.core.rchq import null_basis
+from sober_tpu_torch.ops.car import (car_eliminate, car_eliminate_reference,
+                                     reference_horizon)
+from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d,ard", [(512, 65536, 10, False),
+                                       (65536, 500, 10, True),
+                                       (70, 130, 3, True), (1, 1, 64, False)])
+def test_rbf_kernel_matches_reference_on_card(cuda, n, m, d, ard):
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    x, y = t(rng.uniform(-1, 1, (n, d))), t(rng.uniform(-1, 1, (m, d)))
+    ls = t(rng.uniform(0.5, 1.5, d)) if ard else t(0.8)
+    p = {"lengthscale": ls, "outputscale": t(1.3)}
+    before = rbf_gram.launches
+    got = rbf_gram(p, x, y)
+    torch.cuda.synchronize()
+    assert rbf_gram.launches == before + 1
+    # direct differences against the reference's norm trick
+    assert float((got - rbf_gram_reference(p, x, y)).abs().max()) <= 1.3e-5
+
+
+@pytest.mark.cuda
+def test_rbf_kernel_rejects_what_it_cannot_run(cuda):
+    x = torch.zeros((4, 3), device=cuda)
+    p = {"lengthscale": torch.tensor(1.0, device=cuda),
+         "outputscale": torch.tensor(1.0, device=cuda, requires_grad=True)}
+    with pytest.raises(ValueError, match="requires grad"):
+        rbf_gram(p, x, x)
+    p["outputscale"] = torch.tensor(1.0, device=cuda)
+    with pytest.raises(TypeError):
+        rbf_gram(p, x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rbf_gram(p, torch.zeros((3, 4), device=cuda).T, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,q", [(400, 200), (200, 100), (64, 47)])
+def test_car_kernel_matches_reference_on_card(cuda, m, q):
+    rng = np.random.default_rng(m)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    x = t(rng.normal(size=(m, m - q)))
+    mu = rng.uniform(0.1, 1.0, m)
+    mask = np.ones(m)
+    mask[-7:] = mu[-7:] = 0.0
+    mu, mask = t(mu / mu.sum()), t(mask)
+    big_n, n_take, active0 = null_basis(x, mu, m - q, mask)
+    mu_k, el_k = car_eliminate(mu, big_n, mask, n_take)
+    mu_r, el_r = car_eliminate_reference(mu, big_n, mask, n_take)
+    w_k = mu_k * (1 - el_k) * active0
+    assert bool((w_k >= 0).all()) and bool((w_k[-7:] == 0).all())
+    assert float((x.T @ w_k - x.T @ mu).abs().max()) < 1e-4
+    assert int(el_k.sum()) == int(el_r.sum())
+    k = reference_horizon(mu, big_n, mask, n_take)
+    assert k >= 10
+    mu_k, el_k = car_eliminate(mu, big_n, mask, k)
+    mu_r, el_r = car_eliminate_reference(mu, big_n, mask, k)
+    assert torch.equal(el_k, el_r)
+    assert float((mu_k - mu_r).abs().max()) <= 1e-5

@@ -1,0 +1,178 @@
+"""Parity of the port's Gram kernels and Caratheodory loop with the JAX
+package, on the CPU, where every kernel wrapper takes its plain PyTorch
+reference. The kernels themselves are tested on the card by
+tests/test_torch_cuda.py."""
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sober_tpu.ops import kernels as jk
+from sober_tpu.ops.pallas_car import car_eliminate_pallas
+from sober_tpu.ops.pallas_kernels import rbf_gram_pallas
+from sober_tpu_torch.ops import _build
+from sober_tpu_torch.ops.car import (car_eliminate, car_eliminate_reference,
+                                     reference_horizon)
+from sober_tpu_torch.ops.kernels import make_kernel
+from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
+
+
+def test_import_without_jax():
+    code = ("import sober_tpu_torch, sober_tpu_torch.core.fused, "
+            "sober_tpu_torch.interop, sys; "
+            "assert not any(m == 'jax' or m.startswith('jax.') "
+            "for m in sys.modules), 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], check=True)
+
+
+# ----------------------------------------------------------------------------
+# Grams
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ard", [False, True])
+@pytest.mark.parametrize("name", ["rbf", "matern12", "matern32", "matern52",
+                                  "linear"])
+def test_gram_matches_jax(name, ard):
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1, 1, (37, 4)).astype(np.float32)
+    y = rng.uniform(-1, 1, (53, 4)).astype(np.float32)
+    ls = rng.uniform(0.4, 1.5, 4).astype(np.float32) if ard else np.float32(0.7)
+    os_ = np.float32(1.3)
+    want = np.asarray(jk.KERNELS[name](
+        {"lengthscale": jnp.asarray(ls), "outputscale": jnp.asarray(os_)},
+        jnp.asarray(x), jnp.asarray(y)))
+    kern = make_kernel(name, n_dims=4, ard=ard)
+    kern.params["lengthscale"] = torch.as_tensor(ls)
+    kern.params["outputscale"] = torch.as_tensor(os_)
+    got = kern.gram(torch.as_tensor(x), torch.as_tensor(y)).numpy()
+    assert np.abs(got - want).max() <= 1e-5
+    jkern = jk.Kernel(name, {"lengthscale": jnp.asarray(ls),
+                             "outputscale": jnp.asarray(os_)})
+    np.testing.assert_allclose(kern.diag(torch.as_tensor(x)).numpy(),
+                               np.asarray(jkern.diag(jnp.asarray(x))),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("ard", [False, True])
+def test_rbf_reference_matches_pallas(ard):
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-1, 1, (50, 5)).astype(np.float32)
+    y = rng.uniform(-1, 1, (90, 5)).astype(np.float32)
+    ls = rng.uniform(0.5, 1.2, 5).astype(np.float32) if ard else np.float32(0.7)
+    p = {"lengthscale": ls, "outputscale": np.float32(1.3)}
+    want = np.asarray(rbf_gram_pallas(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        jnp.asarray(y), tile_m=64, tile_n=64, interpret=True))
+    got = rbf_gram_reference({k: torch.as_tensor(v) for k, v in p.items()},
+                             torch.as_tensor(x), torch.as_tensor(y)).numpy()
+    assert np.abs(got - want).max() <= 1e-5
+
+
+def test_wrappers_take_reference_on_cpu():
+    """On CPU tensors the wrappers compute the reference and launch nothing."""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-1, 1, (20, 3)), dtype=torch.float32)
+    p = {"lengthscale": torch.tensor(0.5), "outputscale": torch.tensor(2.0)}
+    n_rbf, n_car = rbf_gram.launches, car_eliminate.launches
+    assert torch.equal(rbf_gram(p, x, x[:7]), rbf_gram_reference(p, x, x[:7]))
+    big_n, _, mu, mask = _car_inputs(np.random.default_rng(1), 24, 9, 3)
+    got = car_eliminate(torch.as_tensor(mu), torch.as_tensor(big_n),
+                        torch.as_tensor(mask), 10)
+    want = car_eliminate_reference(torch.as_tensor(mu), torch.as_tensor(big_n),
+                                   torch.as_tensor(mask), 10)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (rbf_gram.launches, car_eliminate.launches) == (n_rbf, n_car)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "library_path",
+                        lambda: tmp_path / "libmissing.so")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+# ----------------------------------------------------------------------------
+# Caratheodory elimination loop
+# ----------------------------------------------------------------------------
+
+def _jax_null_basis(x, mu, mask, n_elim):
+    """The two-stage null basis of sober_tpu/core/rchq.py:_caratheodory, in
+    JAX (as tests/test_pallas.py builds it)."""
+    m, p = x.shape
+    active0 = jnp.logical_and(mu > 0, mask > 0).astype(jnp.float32)
+    q_full, _ = jnp.linalg.qr(jnp.asarray(x) * active0[:, None], mode="complete")
+    n0 = q_full[:, p:]
+    d_gram = (n0 * (1.0 - active0)[:, None]).T @ n0
+    lam, c_vecs = jnp.linalg.eigh(0.5 * (d_gram + d_gram.T))
+    n_take = min(n_elim, m - p)
+    big_n = (n0 @ c_vecs[:, :n_take]) * (lam[:n_take] <= 1e-6)[None, :]
+    return np.array(big_n, np.float32)
+
+
+def _car_inputs(rng, m, p, n_pad):
+    """Random well-conditioned CAR inputs with n_pad padding rows, and their
+    null basis built in JAX. Returns numpy (big_n, x, mu, mask)."""
+    x = rng.normal(size=(m, p)).astype(np.float32)
+    mu = rng.uniform(0.1, 1.0, m).astype(np.float32)
+    mask = np.ones(m, np.float32)
+    if n_pad:
+        mask[-n_pad:] = 0.0
+        mu[-n_pad:] = 0.0
+    mu /= mu.sum()
+    big_n = _jax_null_basis(x, jnp.asarray(mu), jnp.asarray(mask), m - p)
+    return big_n, x, mu, mask
+
+
+@pytest.mark.parametrize("m,p,n_pad,seed", [(64, 17, 5, 7), (48, 31, 0, 8),
+                                             (96, 40, 9, 9)])
+def test_car_loop_matches_pallas_and_fori(m, p, n_pad, seed):
+    """One null basis fed to the port's reference, the Pallas kernel in
+    interpret mode and the JAX fori-loop path: the same eliminated set and
+    |dmu| <= 1e-5, plus the invariants of tests/test_pallas.py."""
+    from sober_tpu.core.rchq import _caratheodory
+
+    big_n, x, mu, mask = _car_inputs(np.random.default_rng(seed), m, p, n_pad)
+    n_take = big_n.shape[1]
+    active0 = ((mu > 0) & (mask > 0)).astype(np.float32)
+
+    mu_t, el_t = car_eliminate_reference(
+        torch.as_tensor(mu), torch.as_tensor(big_n), torch.as_tensor(mask),
+        n_take)
+    w_t = (mu_t * (1 - el_t)).numpy() * active0
+    mu_p, el_p = car_eliminate_pallas(jnp.asarray(mu), jnp.asarray(big_n),
+                                      jnp.asarray(mask), n_take, interpret=True)
+    w_p = np.asarray(mu_p * (1 - el_p)) * active0
+    w_f = np.asarray(_caratheodory(jnp.asarray(x), jnp.asarray(mu), m - p,
+                                   jnp.asarray(mask)))
+
+    np.testing.assert_array_equal(el_t.numpy(), np.asarray(el_p))
+    assert set(np.flatnonzero(w_t == 0)) == set(np.flatnonzero(w_f == 0))
+    assert np.abs(w_t - w_p).max() <= 1e-5
+    assert np.abs(w_t - w_f).max() <= 1e-5
+    assert (w_t >= 0).all()
+    if n_pad:
+        assert (w_t[-n_pad:] == 0).all()                  # padding stays empty
+    n_usable = int(np.sum(np.abs(big_n).max(axis=0) > 0))
+    assert (w_t == 0).sum() >= (mu == 0).sum() + n_usable - 2
+    assert np.abs(x.T @ w_t - x.T @ mu).max() < 1e-4
+
+
+def test_reference_horizon_bounds_exact_agreement():
+    """Past the horizon the float32 and float64 runs part; up to it they
+    agree exactly, which is what the card's kernel is held to."""
+    big_n, x, mu, mask = _car_inputs(np.random.default_rng(4), 200, 100, 7)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt)
+    n_take = big_n.shape[1]
+    k = reference_horizon(t(mu), t(big_n), t(mask), n_take)
+    assert 10 <= k <= n_take
+    m32, e32 = car_eliminate_reference(t(mu), t(big_n), t(mask), k)
+    m64, e64 = car_eliminate_reference(t(mu, torch.float64),
+                                       t(big_n, torch.float64),
+                                       t(mask, torch.float64), k)
+    assert torch.equal(e32.double(), e64)
+    assert float((m32.double() - m64).abs().max()) <= 1e-6
