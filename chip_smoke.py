@@ -1,11 +1,14 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-The main path is one exact-GP batch-BO iteration on a continuous domain:
-a warm-started MAP refit of the GP hypers, the posterior cache, the
-incumbent eta, and the fused acquisition (pi weights, Nystrom features,
-the halving tree of Caratheodory eliminations). The script
+Two paths. The first is one exact-GP batch-BO iteration on a continuous
+domain: a warm-started MAP refit of the GP hypers, the posterior cache, the
+incumbent eta, and the fused acquisition (pi weights, Nystrom features, the
+halving tree of Caratheodory eliminations). The second is one
+dataset-domain screening iteration, Sober.next_batch over a pool of
+133,303 x 2048-bit fingerprints with a Tanimoto GP (bench.py:bench_dataset).
+The script
 
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
@@ -14,10 +17,15 @@ the halving tree of Caratheodory eliminations). The script
      path's shapes, and times both;
   3. holds the Caratheodory kernel to its reference at both configs'
      shapes, and times both;
-  4. checks the port on the card against the port on the CPU (plain
-     PyTorch references) on a small iteration;
-  5. runs the full iteration at 65k/200 and 6. at 200k/100 (the
+  4. holds the Tanimoto Gram and its bit-pack kernel to their references
+     and to a float64 oracle at the dataset path's shapes, and times them;
+  5. checks the port on the card against the port on the CPU (plain
+     PyTorch references) on a small continuous iteration and 6. on a small
+     screening iteration;
+  7. runs the full continuous iteration at 65k/200 and at 200k/100 (the
      configurations of bench.py), with the kernels' launch counts;
+  8. fits the Tanimoto GP and runs the full screening iteration at
+     bench.py's configuration, with its stage split and launch counts;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -39,9 +47,24 @@ import torch
 CONFIGS = (("65k/200", 65_536, 200, 512, 10, 500, 9),
            ("200k/100", 200_000, 100, 500, 4, 500, 11))
 ITERS = 5
-# where the TPU kernels live that the two CUDA kernels replace
+# the screening iteration of bench.py:bench_dataset: pool rows, bits, bit
+# density, observations, n_rec, n_nys, batch
+DATASET = (133_303, 2048, 0.025, 512, 2000, 500, 100)
+# Tanimoto Grams and CAR launches per next_batch: one Gram for the pi sweep
+# and 5 for each of recombination's two kernel calls (the weighted
+# predictive covariance makes 2 predict_mean Grams and 3 in
+# predictive_covariance); CAR runs ceil(log2(2000 / 200)) + 1 rounds
+DATASET_LAUNCHES = {"tanimoto_gram": 11, "car_eliminate": 5}
+# where the TPU kernels live that the CUDA kernels replace (the bit pack
+# computes the row sums |x| and |y| of the Pallas Tanimoto kernel)
 REPLACES = {"rbf_gram": "sober_tpu/ops/pallas_kernels.py:131",
-            "car_eliminate": "sober_tpu/ops/pallas_car.py:99"}
+            "car_eliminate": "sober_tpu/ops/pallas_car.py:99",
+            "tanimoto_gram": "sober_tpu/ops/pallas_kernels.py:72",
+            "pack_bits": "sober_tpu/ops/pallas_kernels.py:72"}
+SOURCES = {"rbf_gram": "sober_tpu_torch/csrc/rbf_gram.cu",
+           "car_eliminate": "sober_tpu_torch/csrc/car_eliminate.cu",
+           "tanimoto_gram": "sober_tpu_torch/csrc/tanimoto_gram.cu",
+           "pack_bits": "sober_tpu_torch/csrc/tanimoto_gram.cu"}
 
 
 def emit(**row) -> None:
@@ -216,16 +239,16 @@ def iteration(x_obs, y_obs, x_cand, x_nys, prior_pdf, params_prev, cfg, batch,
     return state, idx, w, weights
 
 
-def moment_error(state, x_cand, x_nys, weights, idx, w, batch) -> float:
+def moment_error(kernel, x_cand, x_nys, weights, idx, w, batch) -> float:
     """Moment error of the batch on the port's own normalized feature strip
-    (the same Gram, basis and scale that recombination used)."""
+    (the same Gram, basis and scale that recombination used); kernel is
+    recombination's Gram callable."""
     from sober_tpu_torch.core.rchq import nystrom_basis
-    from sober_tpu_torch.gp.exact import predictive_covariance
     from sober_tpu_torch.utils.linalg import symmetrize
 
-    k_nys = symmetrize(torch.nan_to_num(predictive_covariance(state, x_nys, x_nys)))
+    k_nys = symmetrize(torch.nan_to_num(kernel(x_nys, x_nys)))
     u = nystrom_basis(k_nys, batch - 1)
-    phi = u @ predictive_covariance(state, x_nys, x_cand)
+    phi = u @ kernel(x_nys, x_cand)
     phi = phi / torch.clamp_min(phi.abs().max(), 1e-30)
     want = phi @ (weights / weights.sum())
     got = phi[:, idx] @ w
@@ -246,7 +269,8 @@ def phase_small_vs_cpu() -> None:
     references) on one small iteration, from the same fitted hypers."""
     from sober_tpu_torch.core.fused import fused_acquisition
     from sober_tpu_torch.gp.exact import (GPConfig, GPParams, build_state,
-                                          fit_params, posterior_max_mean)
+                                          fit_params, posterior_max_mean,
+                                          predictive_covariance)
 
     cfg = GPConfig(fit_iters=100)
     n_cand, n_nys, batch = 2048, 64, 16
@@ -259,8 +283,9 @@ def phase_small_vs_cpu() -> None:
         eta = posterior_max_mean(state)
         idx, w, weights = fused_acquisition(state, eta, x_cand, x_nys, pdf, batch)
         check_batch(idx, w, n_cand, batch, f"small {dev}")
+        kernel = lambda a, b: predictive_covariance(state, a, b)
         out[dev] = (float(eta), weights.cpu(),
-                    moment_error(state, x_cand, x_nys, weights, idx, w, batch))
+                    moment_error(kernel, x_cand, x_nys, weights, idx, w, batch))
     eta_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     w_err = float((out["cuda"][1] - out["cpu"][1]).abs().max())
     require(eta_err < 1e-4, f"small: eta rel err {eta_err}")
@@ -272,7 +297,7 @@ def phase_small_vs_cpu() -> None:
 
 
 def phase_iteration(cfg_row, counts: dict) -> None:
-    from sober_tpu_torch.gp.exact import GPConfig, fit_params
+    from sober_tpu_torch.gp.exact import GPConfig, fit_params, predictive_covariance
     from sober_tpu_torch.ops.car import car_eliminate
     from sober_tpu_torch.ops.rbf_gram import rbf_gram
 
@@ -305,7 +330,8 @@ def phase_iteration(cfg_row, counts: dict) -> None:
     require(n_rbf > 0, f"{name}: the RBF kernel never launched")
 
     check_batch(idx, w, n_cand, batch, name)
-    mom = moment_error(state, x_cand, x_nys, weights, idx, w, batch)
+    mom = moment_error(lambda a, b: predictive_covariance(state, a, b),
+                       x_cand, x_nys, weights, idx, w, batch)
     require(mom < 5e-3, f"{name}: moment error {mom}")
     emit(phase="iteration", config=name, n_cand=n_cand, batch=batch, n_nys=n_nys,
          d=d, n_obs=n_obs, iteration_s_median=statistics.median(times),
@@ -319,21 +345,264 @@ def phase_iteration(cfg_row, counts: dict) -> None:
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
+def make_pool():
+    """bench.py:bench_dataset's pool, from numpy seed 0: fingerprints at
+    ~2.5% bit density (typical of 2048-bit Morgan fingerprints) and normal
+    targets. Made once; the Tanimoto phase and the screening iteration share
+    it."""
+    n_total, n_bits, density = DATASET[:3]
+    rng = np.random.default_rng(0)
+    feats = (rng.random((n_total, n_bits)) < density).astype(np.float32)
+    return feats, rng.normal(size=n_total).astype(np.float32)
+
+
+def phase_tanimoto(summary: dict, pool: np.ndarray) -> None:
+    from sober_tpu_torch.ops.tanimoto_gram import (pack_bits, pack_bits_reference,
+                                                   tanimoto_similarity,
+                                                   tanimoto_similarity_reference)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    pool_t = torch.as_tensor(pool, device=dev)
+    odd = (rng.random((1777, 300)) < 0.025).astype(np.float32)
+    odd[[0, 5, 1000, 1776]] = 0.0                    # all-zero rows
+    shapes = (("pi sweep K(pool, X)", pool_t,
+               pool_t[torch.as_tensor(rng.choice(len(pool), 512, replace=False),
+                                      device=dev)]),
+              ("recombination strip K(nys, pool)", pool_t[:500], pool_t[500:2500]),
+              ("odd shape with zero rows", torch.as_tensor(odd[:1000], device=dev),
+               torch.as_tensor(odd[1000:], device=dev)))
+    for label, x, y in shapes:
+        got = tanimoto_similarity(x, y)
+        want = tanimoto_similarity_reference(x, y)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= 1e-6,
+                f"tanimoto {label}: err {err}")
+        rows = rng.choice(x.shape[0], min(256, x.shape[0]), replace=False)
+        xs, ys = x[rows].double().cpu().numpy(), y.double().cpu().numpy()
+        xy = xs @ ys.T
+        oracle = xy / np.maximum(xs.sum(1)[:, None] + ys.sum(1)[None, :] - xy, 1e-20)
+        oracle_err = float(np.abs(got[rows].cpu().numpy() - oracle).max())
+        require(oracle_err <= 1e-6, f"tanimoto {label}: oracle err {oracle_err}")
+        words, counts = pack_bits(x)
+        pack_err = float((counts - x.sum(1)).abs().max())   # fp32 sums are exact here
+        require(pack_err == 0.0,
+                f"tanimoto {label}: popcounts differ from row sums by {pack_err}")
+        want_words, _ = pack_bits_reference(x[:4096])
+        require(torch.equal(words[:4096], want_words),
+                f"tanimoto {label}: packed words differ from the reference")
+        pack_ms = cuda_ms(lambda: pack_bits(x))
+        pack_plain_ms = cuda_ms(lambda: pack_bits_reference(x))
+        ms = cuda_ms(lambda: tanimoto_similarity(x, y))
+        plain_ms = cuda_ms(lambda: tanimoto_similarity_reference(x, y))
+        n, m, d = x.shape[0], y.shape[0], x.shape[1]
+        emit(phase="tanimoto_gram", label=label, shape=[n, m, d],
+             max_abs_err=err, oracle_max_abs_err=oracle_err, tol=1e-6,
+             pack_ms=pack_ms, pack_plain_ms=pack_plain_ms, ms=ms,
+             plain_ms=plain_ms)
+        if n == len(pool):
+            summary["tanimoto_gram"] = {"max_abs_err": err, "ms": ms,
+                                        "plain_ms": plain_ms, "shape": [n, m, d]}
+            summary["pack_bits"] = {"max_abs_err": pack_err, "ms": pack_ms,
+                                    "plain_ms": pack_plain_ms, "shape": [n, d]}
+    bad = pool_t[:64].clone()
+    bad[3, 7] = 0.5
+    try:
+        tanimoto_similarity(bad, pool_t[:8])
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("check failed: a non-binary fingerprint was accepted")
+
+
+def state_to(state, dev):
+    """A GPState with every tensor moved to `dev`."""
+    from sober_tpu_torch.ops.kernels import Kernel
+
+    kernel = Kernel(state.kernel.name,
+                    {k: v.to(dev) for k, v in state.kernel.params.items()})
+    tensors = {f: getattr(state, f) for f in state._fields
+               if f not in ("config", "kernel")}
+    return state._replace(kernel=kernel, **{
+        f: None if t is None else t.to(dev) for f, t in tensors.items()})
+
+
+def check_screening_batch(prior, idx_global, x_batch, available, batch, label):
+    """The batch of a next_batch call: distinct, in range, available before
+    the call, and the features of those rows."""
+    require(tuple(idx_global.shape) == (batch,), f"{label}: batch shape")
+    require(int(idx_global.min()) >= 0 and int(idx_global.max()) < prior.n_total,
+            f"{label}: idx in range")
+    require(len(set(idx_global.tolist())) == batch, f"{label}: idx distinct")
+    require(bool(available[idx_global].all()), f"{label}: idx available")
+    require(torch.equal(x_batch, prior.features[idx_global]), f"{label}: x_batch")
+
+
+def staged_screening(sober, n_rec, n_nys, batch, stages=None):
+    """The stages of next_batch run one by one, each synced and timed:
+    the pi sweep, pruning + the Nystrom subset, recombination. Returns the
+    batch's pool rows, weights and moment error."""
+    from sober_tpu_torch.core.fused_sampling import dataset_candidates
+    from sober_tpu_torch.core.sampler import PRUNE_THRESH
+
+    prior = sober.prior
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    w_all = sober.pi(prior.features)
+    mark()
+    idx_s, x_cand, x_nys, w = dataset_candidates(
+        w_all, prior.features, prior.available, sober.keys.next(), n_rec, n_nys,
+        PRUNE_THRESH, sober.dataset_pruning)
+    mark()
+    idx, w_rchq = sober.sampling_recombination(x_cand, x_nys, w, batch)
+    mark()
+    if stages is not None:
+        for name, a, b in zip(("pi_sweep", "prune_nystrom", "recombination"),
+                              marks, marks[1:]):
+            stages.setdefault(name, []).append(1e3 * (b - a))
+    check_batch(idx, w_rchq, n_rec, batch, "staged screening")
+    mom = moment_error(sober.kernel, x_cand, x_nys, w, idx, w_rchq, batch)
+    require(mom < 5e-3, f"staged screening: moment error {mom}")
+    return idx_s, w_all, mom
+
+
+def phase_small_dataset_vs_cpu() -> None:
+    """The screening path on the card against the port on the CPU (plain
+    PyTorch references), from one GP state fitted on the CPU."""
+    from sober_tpu_torch import DatasetPrior, Sober, fit_tanimoto_gp
+
+    n_pool, n_bits, n_obs, n_rec, n_nys, batch = 4096, 256, 64, 512, 64, 16
+    # a seed whose pruning cut is tie-free: on the CPU the 512th and 513th
+    # pi weights differ by 1.2e-4
+    rng = np.random.default_rng(5)
+    feats = (rng.random((n_pool, n_bits)) < 0.05).astype(np.float32)
+    w_true = rng.normal(size=n_bits).astype(np.float32)
+    targets = (feats @ w_true / np.sqrt(feats.sum(1) + 1.0)).astype(np.float32)
+    obs = rng.permutation(n_pool)[:n_obs]
+    state = fit_tanimoto_gp(torch.as_tensor(feats[obs]), torch.as_tensor(targets[obs]))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        prior = DatasetPrior(feats, targets, device=dev)
+        prior.remove_sampled_index(torch.as_tensor(obs))
+        sober = Sober(prior, state_to(state, dev),
+                      kernel_type="weighted_predictive_covariance")
+        available = prior.available.clone()
+        idx_g, x_batch = sober.next_batch(n_rec, n_nys, batch)
+        check_screening_batch(prior, idx_g, x_batch, available, batch,
+                              f"small screening {dev}")
+        stages = {}
+        idx_s, w_all, mom = staged_screening(sober, n_rec, n_nys, batch, stages)
+        out[dev] = (torch.where(available, w_all, 0.0).cpu(), idx_s.cpu(), mom)
+    w_err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    top = torch.sort(out["cpu"][0], descending=True).values
+    gap = float(top[n_rec - 1] - top[n_rec])
+    same = set(out["cuda"][1].tolist()) == set(out["cpu"][1].tolist())
+    require(w_err <= 1e-6, f"small screening: pi weights err {w_err}")
+    require(gap > 2 * w_err, f"small screening: the cut is not tie-free ({gap})")
+    require(same, "small screening: the pruned pools differ")
+    emit(phase="small_dataset_cuda_vs_cpu", pi_weights_max_abs_err=w_err,
+         cut_gap=gap, pruned_sets_equal=same, moment_err_cuda=out["cuda"][2],
+         moment_err_cpu=out["cpu"][2])
+
+
+def phase_dataset_iteration(pool, targets, counts: dict) -> None:
+    """bench.py:bench_dataset on the port: the Tanimoto GP fitted on 512
+    observations drawn from the pool (outside the timed loop, as bench
+    does), then one warm-up and ITERS timed Sober.next_batch calls."""
+    from sober_tpu_torch import DatasetPrior, Sober, fit_tanimoto_gp
+    from sober_tpu_torch.ops.car import car_eliminate
+    from sober_tpu_torch.ops.rbf_gram import rbf_gram
+    from sober_tpu_torch.ops.tanimoto_gram import pack_bits, tanimoto_similarity
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    n_total, n_bits, _, n_obs, n_rec, n_nys, batch = DATASET
+    dev = torch.device("cuda")
+    prior = DatasetPrior(pool, targets, device=dev)
+    x_obs, y_obs = prior.sample(KeyRing(0, device=dev).next(), n_obs)
+    torch.cuda.synchronize()
+    tanimoto_similarity.launches = 0
+    t0 = time.perf_counter()
+    model = fit_tanimoto_gp(x_obs, y_obs)
+    torch.cuda.synchronize()
+    fit_s, fit_launches = time.perf_counter() - t0, tanimoto_similarity.launches
+    require(fit_launches > 0, "dataset fit: the Tanimoto kernel never launched")
+    emit(phase="dataset_fit", n_obs=n_obs, n_bits=n_bits, seconds=fit_s,
+         tanimoto_launches=fit_launches,
+         outputscale=float(model.kernel.params["outputscale"]),
+         noise=float(model.noise))
+    sober = Sober(prior, model, kernel_type="weighted_predictive_covariance")
+    sober.update_model(model)
+    available = prior.available.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for fn in (tanimoto_similarity, pack_bits, car_eliminate, rbf_gram):
+        fn.launches = 0
+    times = []
+    for it in range(1 + ITERS):                       # one warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_g, x_batch = sober.next_batch(n_rec, n_nys, batch)
+        torch.cuda.synchronize()
+        if it:
+            times.append(time.perf_counter() - t0)
+    n_tan, n_car = tanimoto_similarity.launches, car_eliminate.launches
+    n_pack, n_rbf = pack_bits.launches, rbf_gram.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for name, n in (("tanimoto_gram", n_tan), ("car_eliminate", n_car)):
+        require(n == DATASET_LAUNCHES[name] * (1 + ITERS),
+                f"dataset: {n} {name} launches, want "
+                f"{DATASET_LAUNCHES[name]} per iteration")
+    require(n_rbf == 0, "dataset: the RBF kernel launched on a Tanimoto path")
+    counts["tanimoto_gram"] = counts.get("tanimoto_gram", 0) + n_tan
+    counts["pack_bits"] = counts.get("pack_bits", 0) + n_pack
+    counts["car_eliminate"] = counts.get("car_eliminate", 0) + n_car
+    check_screening_batch(prior, idx_g, x_batch, available, batch, "dataset")
+    w_b, _ = sober.next_batch(n_rec, n_nys, batch, return_weights=True)
+    require(bool((w_b >= 0).all()) and abs(float(w_b.sum()) - 1.0) < 1e-3,
+            f"dataset: w >= 0, sum w = {float(w_b.sum())}")
+
+    stages, moms = {}, []
+    for _ in range(ITERS):
+        moms.append(staged_screening(sober, n_rec, n_nys, batch, stages)[2])
+    emit(phase="dataset_iteration", n_total=n_total, n_bits=n_bits, n_obs=n_obs,
+         n_rec=n_rec, n_nys=n_nys, batch=batch,
+         iteration_s_median=statistics.median(times), iteration_s=times,
+         stage_ms_median={k: statistics.median(v) for k, v in stages.items()},
+         stage_ms=stages,
+         launches_per_iteration={"tanimoto_gram": n_tan / (1 + ITERS),
+                                 "pack_bits": n_pack / (1 + ITERS),
+                                 "car_eliminate": n_car / (1 + ITERS)},
+         moment_err_max=max(moms), w_sum=float(w_b.sum()),
+         n_pos=int(sober.last_npos), peak_mem_gib=peak_gib)
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     summary, counts = {}, {}
     phase_rbf(summary)
     phase_car(summary)
+    t0 = time.perf_counter()
+    pool, targets = make_pool()
+    emit(phase="dataset_pool", shape=list(pool.shape),
+         density=float(pool.mean()), seconds=time.perf_counter() - t0)
+    phase_tanimoto(summary, pool)
     phase_small_vs_cpu()
+    phase_small_dataset_vs_cpu()
     for row in CONFIGS:
         phase_iteration(row, counts)
+    phase_dataset_iteration(pool, targets, counts)
     kernels = []
-    for name, route_src in (("rbf_gram", "sober_tpu_torch/csrc/rbf_gram.cu"),
-                            ("car_eliminate", "sober_tpu_torch/csrc/car_eliminate.cu")):
+    for name in ("rbf_gram", "car_eliminate", "tanimoto_gram", "pack_bits"):
         s = summary[name]
         require(counts[name] > 0, f"{name} not launched on the main path")
-        kernels.append({"name": name, "route": "cuda", "source": route_src,
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": counts[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "shape": s["shape"]})

@@ -19,5 +19,9 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from .config import Settings, settings  # noqa: E402
+from .core.sober import Sober  # noqa: E402
+from .gp.tanimoto import fit_tanimoto_gp  # noqa: E402
+from .priors.dataset import DatasetPrior  # noqa: E402
 
-__all__ = ["Settings", "settings", "__version__"]
+__all__ = ["DatasetPrior", "Settings", "Sober", "fit_tanimoto_gp", "settings",
+           "__version__"]

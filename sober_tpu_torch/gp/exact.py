@@ -6,7 +6,9 @@ Kxx + sigma^2 I, alpha and its explicit inverse L^-1). Hypers are MAP-fitted
 by an L-BFGS ladder that falls back to Adam. The fit runs eagerly, with
 Python control flow where the JAX package had lax.scan and lax.cond, and
 host syncs where a branch needs a value. Everything after the fit runs
-under no_grad and reaches the RBF Gram through its CUDA kernel.
+under no_grad and reaches the RBF and Tanimoto Grams through their CUDA
+kernels; so does the fit's Tanimoto Gram, whose inputs never need a
+gradient.
 
 Only the zero prior mean is ported; the parabolic (BOLFI) mean waits.
 """
@@ -18,7 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.kernels import KERNELS, Kernel
+from ..ops.kernels import _NO_LENGTHSCALE, KERNELS, Kernel
 from ..utils.linalg import jitter_cholesky
 
 
@@ -91,9 +93,12 @@ def _inv_interval(v, lo, hi):
 
 
 def materialize(params: GPParams, cfg: GPConfig) -> tuple[Kernel, torch.Tensor]:
-    """raw params -> (Kernel spec, noise variance)."""
-    kparams = {"outputscale": torch.nn.functional.softplus(params.raw_outputscale),
-               "lengthscale": torch.nn.functional.softplus(params.raw_lengthscale)}
+    """raw params -> (Kernel spec, noise variance). A kernel without a
+    lengthscale (Tanimoto) leaves raw_lengthscale unused."""
+    kparams = {"outputscale": torch.nn.functional.softplus(params.raw_outputscale)}
+    if cfg.kernel_name not in _NO_LENGTHSCALE:
+        kparams["lengthscale"] = torch.nn.functional.softplus(
+            params.raw_lengthscale)
     noise = _interval(params.raw_noise, cfg.noise_lo, cfg.noise_hi)
     return Kernel(cfg.kernel_name, kparams), noise
 
@@ -209,8 +214,9 @@ def neg_mll(params: GPParams, x: torch.Tensor, y: torch.Tensor,
     if cfg.use_priors:
         ls_a, ls_b = cfg.ls_prior or (3.0, 6.0)
         os_a, os_b = cfg.os_prior or (2.0, 0.15)
-        mll = mll + torch.sum(_gamma_logpdf(kernel.params["lengthscale"],
-                                            ls_a, ls_b))
+        if "lengthscale" in kernel.params:
+            mll = mll + torch.sum(_gamma_logpdf(kernel.params["lengthscale"],
+                                                ls_a, ls_b))
         mll = mll + _gamma_logpdf(kernel.params["outputscale"], os_a, os_b)
     return -mll / n
 
@@ -234,12 +240,14 @@ def _loss(params: GPParams, x, y, cfg, mask) -> float:
 
 def _set_grads(params: GPParams, loss: torch.Tensor, cfg: GPConfig) -> None:
     """Backward, then nan_to_num the gradients (and freeze the noise when
-    train_lik is off)."""
+    train_lik is off). A parameter the loss does not use (raw_lengthscale
+    of a Tanimoto GP) gets a zero gradient, as jax.grad gives it."""
     for p in params:
         p.grad = None
     loss.backward()
     for p in params:
-        p.grad = torch.nan_to_num(p.grad)
+        p.grad = (torch.zeros_like(p) if p.grad is None
+                  else torch.nan_to_num(p.grad))
     if not cfg.train_lik:
         params.raw_noise.grad.zero_()
 
@@ -404,6 +412,16 @@ def predict(state: GPState, xq: torch.Tensor, include_noise: bool = True):
     if include_noise:
         var = var + state.noise
     return mean, var
+
+
+def predict_raw(state: GPState, xq: torch.Tensor, include_noise: bool = True):
+    """Posterior on the original y scale."""
+    mean, var = predict(state, xq, include_noise)
+    return mean * state.y_std + state.y_mean, var * state.y_std ** 2
+
+
+def predict_mean(state: GPState, xq: torch.Tensor) -> torch.Tensor:
+    return predict(state, xq)[0]
 
 
 @torch.no_grad()

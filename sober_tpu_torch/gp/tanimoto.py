@@ -1,0 +1,30 @@
+"""Tanimoto-kernel GP for molecular fingerprints (port of
+sober_tpu/gp/tanimoto.py): the exact GP with the Tanimoto kernel plugged
+in. On the card its Grams run through the popcount kernel of
+`ops/tanimoto_gram.py`."""
+from __future__ import annotations
+
+import torch
+
+from ..ops.kernels import tanimoto_gram
+from .exact import GPConfig, GPState, fit_gp_padded
+
+
+def batch_tanimoto_sim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bit-vector Tanimoto similarity <x,y>/(|x|^2+|y|^2-<x,y>)
+    (SOBER/_drug_modelling.py:15-25)."""
+    return tanimoto_gram({"outputscale": torch.ones((), dtype=x.dtype,
+                                                    device=x.device)}, x, y)
+
+
+def fit_tanimoto_gp(x: torch.Tensor, y: torch.Tensor,
+                    noise_lo: float = 1e-8, noise_hi: float = 1e-2,
+                    optimiser: str = "lbfgs", fit_iters: int = 100,
+                    bucket: int = 128) -> GPState:
+    """TanimotoGP (SOBER/_drug_modelling.py:103-113): ScaleKernel(Tanimoto)
+    exact GP with standardized targets and no hyperpriors, fitted on a
+    bucket-padded observation buffer."""
+    cfg = GPConfig(kernel_name="tanimoto", noise_lo=noise_lo,
+                   noise_hi=noise_hi, train_lik=True, standardize_y=True,
+                   use_priors=False, fit_iters=fit_iters)
+    return fit_gp_padded(x, y, cfg, optimiser=optimiser, bucket=bucket)

@@ -1,11 +1,14 @@
-"""Carry a fitted GP across from the JAX package.
+"""Carry a fitted GP and a dataset prior across from the JAX package.
 
-The JAX side converts its `GPParams` / `GPState` (and the `Kernel` inside)
-to dicts of numpy arrays; these functions turn such dicts into the port's
-`GPParams` / `GPState` on a given device. The dict keys are the field names
+A `sober_tpu` `GPParams` / `GPState` (and the `Kernel` inside) goes across
+as a dict of numpy arrays (`gp_state_to_numpy` makes one from a JAX state);
+these functions turn such dicts into the port's `GPParams` / `GPState` on a
+given device. The dict keys are the field names
 of `sober_tpu.gp.exact.GPParams` / `GPState`, with the kernel given as
-`kernel_name` and `kernel_params` and the config as a dict of `GPConfig`
-fields. Nothing here imports jax.
+`kernel_name` and `kernel_params` (a Tanimoto kernel's hold only
+`outputscale`) and the config as a dict of `GPConfig` fields. A Tanimoto
+GP's params keep their unused `raw_lengthscale`, field for field. Nothing
+here imports jax.
 """
 from __future__ import annotations
 
@@ -17,8 +20,11 @@ import torch
 
 from .gp.exact import GPConfig, GPParams, GPState
 from .ops.kernels import Kernel
+from .priors.dataset import DatasetPrior
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(GPConfig)}
+_STATE_ARRAYS = ("noise", "x", "y", "y_mean", "y_std", "chol", "alpha", "mask",
+                 "linv")
 
 
 def _tensor(a, device) -> Optional[torch.Tensor]:
@@ -48,6 +54,16 @@ def gp_config_from_dict(d: dict) -> GPConfig:
     return GPConfig(**{k: v for k, v in d.items() if k in _CONFIG_FIELDS})
 
 
+def gp_state_to_numpy(state) -> dict:
+    """The dict `gp_state_from_numpy` reads, from a sober_tpu GPState. Its
+    arrays are read with np.asarray, so jax is never imported here."""
+    arr = lambda a: None if a is None else np.asarray(a)
+    return {"config": state.config._asdict(), "kernel_name": state.kernel.name,
+            "kernel_params": {k: arr(v) for k, v in state.kernel.params.items()},
+            "mean_params": state.mean_params,
+            **{k: arr(getattr(state, k)) for k in _STATE_ARRAYS}}
+
+
 def gp_state_from_numpy(d: dict, device=None) -> GPState:
     """GPState from a dict of the fields of sober_tpu's GPState: config
     (dict), kernel_name, kernel_params (dict), noise, x, y, y_mean, y_std,
@@ -55,8 +71,19 @@ def gp_state_from_numpy(d: dict, device=None) -> GPState:
     _no_mean_params(d)
     kernel = Kernel(d["kernel_name"],
                     {k: _tensor(v, device) for k, v in d["kernel_params"].items()})
-    arrays = {k: _tensor(d.get(k), device)
-              for k in ("noise", "x", "y", "y_mean", "y_std", "chol", "alpha",
-                        "mask", "linv")}
+    arrays = {k: _tensor(d.get(k), device) for k in _STATE_ARRAYS}
     return GPState(config=gp_config_from_dict(d["config"]), kernel=kernel,
                    **arrays)
+
+
+def dataset_prior_from_numpy(features, targets, available=None,
+                             device=None) -> DatasetPrior:
+    """DatasetPrior from the numpy arrays of a sober_tpu DatasetPrior:
+    features (n, d), true_targets (n,) and the `available` mask (n,) bool,
+    or None for a fresh pool."""
+    prior = DatasetPrior(np.asarray(features, np.float32),
+                         np.asarray(targets, np.float32), device=device)
+    if available is not None:
+        prior.available = torch.as_tensor(np.asarray(available, bool),
+                                          device=prior.device)
+    return prior

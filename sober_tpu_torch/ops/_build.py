@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of `sober_tpu_torch/csrc`.
 
-All `csrc/*.cu` files are compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, loaded with `ctypes`. The build
-runs at the first launch of any kernel, into `build/sober_tpu_torch/` at the
-root of the checkout, and the library's name carries a hash of the sources
-and flags, so unchanged sources are never rebuilt. Only the CUDA toolkit is
-needed; nothing here imports PyTorch's C++ headers, so a build takes seconds.
+Each `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`),
+all of them at once, and the objects are linked into one shared library with
+a plain C interface, loaded with `ctypes`. The build runs at the first
+launch of any kernel, into `build/sober_tpu_torch/` at the root of the
+checkout, and the library's name carries a hash of the sources and flags,
+so unchanged sources are never rebuilt. Only the CUDA toolkit is needed;
+nothing here imports PyTorch's C++ headers, so a build takes seconds.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sober_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,6 +30,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sober_rbf_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "sober_car_eliminate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "sober_pack_bits": (_P, _P, _P, _P, _I, _I, _P),
+    "sober_tanimoto_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -69,15 +72,30 @@ def build() -> Path:
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(SOURCE_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    sources = sorted(SOURCE_DIR.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        outs = [proc.communicate()[0] for proc in procs]
+        steps = [(cmd, proc.returncode, out)
+                 for cmd, proc, out in zip(compiles, procs, outs)]
+        if all(rc == 0 for _, rc, _ in steps):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc.returncode, proc.stdout + proc.stderr))
+        for cmd, rc, out in steps:
+            if rc != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed with exit code {rc}:\n"
+                                   f"{' '.join(cmd)}\n{out}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(out for _, _, out in steps))
     os.replace(tmp, so)   # atomic: a concurrent build never loads a partial file
     return so
 

@@ -1,9 +1,11 @@
 """Gram-matrix kernels (port of sober_tpu/ops/kernels.py).
 
 Kernels are functions of a parameter dict {"lengthscale": scalar or (d,),
-"outputscale": scalar} of tensors. `KERNELS` holds the plain, differentiable
-formulas. `Kernel.gram` computes the RBF Gram with the hand-written kernel
-(`ops/rbf_gram.py`) and the others with their formulas.
+"outputscale": scalar} of tensors; the Tanimoto kernel has no lengthscale.
+`KERNELS` holds the formulas. `Kernel.gram` computes the RBF Gram with the
+hand-written kernel (`ops/rbf_gram.py`) and the others through `KERNELS`,
+where the Tanimoto Gram reaches its own hand-written kernel
+(`ops/tanimoto_gram.py`).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Callable
 import torch
 
 from .rbf_gram import rbf_gram, rbf_gram_reference, sqdist
+from .tanimoto_gram import tanimoto_similarity
 
 _SQRT3 = 1.7320508075688772
 _SQRT5 = 2.23606797749979
@@ -43,14 +46,26 @@ def linear_gram(params, x, y):
     return params["outputscale"] * (_scale(x, params) @ _scale(y, params).T)
 
 
-# plain formulas; the Tanimoto Gram is not ported yet (ROADMAP.md)
+def tanimoto_gram(params, x, y):
+    """Tanimoto similarity of 0/1 fingerprints times the outputscale. The
+    outputscale multiplies outside the kernel, so autograd reaches it while
+    the fingerprints (which never require grad) go through the CUDA kernel
+    on the card."""
+    return params["outputscale"] * tanimoto_similarity(x, y)
+
+
+# the formulas; all but the Tanimoto Gram are plain PyTorch
 KERNELS: dict[str, Callable] = {
     "rbf": rbf_gram_reference,
     "matern12": matern12_gram,
     "matern32": matern32_gram,
     "matern52": matern52_gram,
     "linear": linear_gram,
+    "tanimoto": tanimoto_gram,
 }
+
+# kernels whose params hold no lengthscale
+_NO_LENGTHSCALE = frozenset({"tanimoto"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +84,7 @@ class Kernel:
         if self.name == "linear":
             xs = _scale(x, self.params)
             return self.params["outputscale"] * torch.sum(xs * xs, dim=-1)
-        # stationary kernels: k(x, x) = outputscale
+        # stationary kernels and Tanimoto: k(x, x) = outputscale
         return self.params["outputscale"].to(x.dtype).expand(x.shape[0])
 
 
@@ -80,6 +95,8 @@ def make_kernel(name: str, n_dims: int | None = None, ard: bool = False,
         raise ValueError(f"unknown kernel {name!r}; have {sorted(KERNELS)}")
     params = {"outputscale": torch.tensor(outputscale, dtype=dtype,
                                           device=device)}
+    if name in _NO_LENGTHSCALE:
+        return Kernel(name, params)
     if ard:
         if n_dims is None:
             raise ValueError("an ARD kernel needs n_dims")

@@ -12,6 +12,9 @@ from sober_tpu_torch.core.rchq import null_basis
 from sober_tpu_torch.ops.car import (car_eliminate, car_eliminate_reference,
                                      reference_horizon)
 from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
+from sober_tpu_torch.ops.tanimoto_gram import (pack_bits, pack_bits_reference,
+                                               tanimoto_similarity,
+                                               tanimoto_similarity_reference)
 
 
 @pytest.fixture
@@ -76,3 +79,60 @@ def test_car_kernel_matches_reference_on_card(cuda, m, q):
     mu_r, el_r = car_eliminate_reference(mu, big_n, mask, k)
     assert torch.equal(el_k, el_r)
     assert float((mu_k - mu_r).abs().max()) <= 1e-5
+
+
+def _bits(rng, n, d, zero_rows=()):
+    x = (rng.random((n, d)) < 0.025).astype(np.float32)
+    x[list(zero_rows)] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [(4096, 512, 2048), (500, 2000, 2048),
+                                   (1000, 777, 300), (1, 1, 1), (65, 130, 4100)])
+def test_tanimoto_kernel_matches_reference_on_card(cuda, n, m, d):
+    """Exact integer intersections and the same fp32 division: the kernel
+    equals the reference to 1e-6 (in practice bit for bit), all-zero rows
+    included, and matches a float64 oracle to 1e-6."""
+    rng = np.random.default_rng(n + d)
+    x = _bits(rng, n, d, zero_rows=(0,) if n > 1 else ())
+    y = _bits(rng, m, d, zero_rows=(m - 1,) if m > 1 else ())
+    xt, yt = (torch.as_tensor(a, device=cuda) for a in (x, y))
+    before = tanimoto_similarity.launches
+    got = tanimoto_similarity(xt, yt)
+    torch.cuda.synchronize()
+    assert tanimoto_similarity.launches == before + 1
+    assert float((got - tanimoto_similarity_reference(xt, yt)).abs().max()) <= 1e-6
+    xy = x.astype(np.float64) @ y.T.astype(np.float64)
+    oracle = xy / np.maximum(x.sum(1)[:, None] + y.sum(1)[None, :] - xy, 1e-20)
+    assert np.abs(got.cpu().numpy() - oracle).max() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048, 300, 33])
+def test_pack_kernel_matches_reference_on_card(cuda, d):
+    rng = np.random.default_rng(d)
+    x = torch.as_tensor(_bits(rng, 333, d, zero_rows=(5,)), device=cuda)
+    words, counts = pack_bits(x)
+    want_words, want_counts = pack_bits_reference(x.cpu())
+    assert torch.equal(words.cpu(), want_words)
+    assert torch.equal(counts.cpu(), want_counts)
+    assert torch.equal(counts.cpu(), x.sum(1).to(torch.int32).cpu())
+
+
+@pytest.mark.cuda
+def test_tanimoto_kernel_rejects_what_it_cannot_run(cuda):
+    x = torch.zeros((4, 64), device=cuda)
+    x[1, 3] = 0.5
+    with pytest.raises(ValueError, match="only 0 and 1"):
+        tanimoto_similarity(x, x)
+    x[1, 3] = float("nan")
+    with pytest.raises(ValueError, match="only 0 and 1"):
+        pack_bits(x)
+    x[1, 3] = 1.0
+    with pytest.raises(TypeError):
+        tanimoto_similarity(x.double(), x.double())
+    with pytest.raises(ValueError, match="requires grad"):
+        tanimoto_similarity(x.clone().requires_grad_(True), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        tanimoto_similarity(torch.zeros((64, 4), device=cuda).T, x)

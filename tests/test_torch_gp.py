@@ -12,7 +12,8 @@ import torch
 from sober_tpu.gp import exact as jx
 from sober_tpu.utils.linalg import jitter_cholesky as jax_jitter_cholesky
 from sober_tpu_torch.gp import exact as tx
-from sober_tpu_torch.interop import gp_params_from_numpy, gp_state_from_numpy
+from sober_tpu_torch.interop import (gp_params_from_numpy, gp_state_from_numpy,
+                                     gp_state_to_numpy)
 from sober_tpu_torch.utils.linalg import jitter_cholesky
 
 
@@ -54,17 +55,6 @@ def _jax_params(raw):
 def _torch_leaves(raw):
     return tx.GPParams(*(torch.tensor(raw[k], requires_grad=True)
                          for k in tx.GPParams._fields))
-
-
-def _state_to_numpy(s):
-    """A JAX GPState as the dict of numpy arrays interop.py reads."""
-    arr = lambda a: None if a is None else np.asarray(a)
-    return {"config": s.config._asdict(), "kernel_name": s.kernel.name,
-            "kernel_params": {k: arr(v) for k, v in s.kernel.params.items()},
-            "mean_params": s.mean_params,
-            **{k: arr(getattr(s, k)) for k in ("noise", "x", "y", "y_mean",
-                                               "y_std", "chol", "alpha",
-                                               "mask", "linv")}}
 
 
 def _params_to_numpy(p):
@@ -179,7 +169,7 @@ def test_prediction_on_carried_state_matches_jax(masked):
                               cfg=jx.GPConfig(fit_iters=30))
     else:
         js = jx.fit_gp(jnp.asarray(x), jnp.asarray(y), jx.GPConfig(fit_iters=30))
-    ts = gp_state_from_numpy(_state_to_numpy(js))
+    ts = gp_state_from_numpy(gp_state_to_numpy(js))
     rng = np.random.default_rng(5)
     xq = rng.uniform(-1, 1, (64, 3)).astype(np.float32)
     xr = rng.uniform(-1, 1, (45, 3)).astype(np.float32)
@@ -265,7 +255,7 @@ def test_interop_round_trip_and_refusals():
     x, y = _data()
     js = jx.fit_gp(jnp.asarray(x), jnp.asarray(y), jx.GPConfig(fit_iters=5),
                    optimiser="adam")
-    d = _state_to_numpy(js)
+    d = gp_state_to_numpy(js)
     ts = gp_state_from_numpy(d)
     assert ts.config == tx.GPConfig(fit_iters=5)
     np.testing.assert_array_equal(ts.linv.numpy(), d["linv"])

@@ -22,7 +22,10 @@ from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
 
 def test_import_without_jax():
     code = ("import sober_tpu_torch, sober_tpu_torch.core.fused, "
-            "sober_tpu_torch.interop, sys; "
+            "sober_tpu_torch.core.sober, sober_tpu_torch.core.fused_sampling, "
+            "sober_tpu_torch.gp.tanimoto, sober_tpu_torch.ops.tanimoto_gram, "
+            "sober_tpu_torch.priors, sober_tpu_torch.tasks, "
+            "sober_tpu_torch.utils.prng, sober_tpu_torch.interop, sys; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules), 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True)

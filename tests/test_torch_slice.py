@@ -15,7 +15,7 @@ from sober_tpu.utils.weights import cleansing_weights as jax_cleansing
 from sober_tpu_torch.core import pi as tpi
 from sober_tpu_torch.core.fused import fused_acquisition
 from sober_tpu_torch.gp import exact as tx
-from sober_tpu_torch.interop import gp_state_from_numpy
+from sober_tpu_torch.interop import gp_state_from_numpy, gp_state_to_numpy
 from sober_tpu_torch.utils.weights import cleansing_weights
 
 N_OBS, D, N_CAND, N_NYS, BATCH = 40, 3, 2048, 64, 16
@@ -35,15 +35,6 @@ def _problem(seed=0):
 def _std(y):
     sd = y.std() if isinstance(y, torch.Tensor) else y.std(ddof=1)
     return (y - y.mean()) / sd
-
-
-def _state_to_numpy(s):
-    arr = lambda a: None if a is None else np.asarray(a)
-    return {"config": s.config._asdict(), "kernel_name": s.kernel.name,
-            "kernel_params": {k: arr(v) for k, v in s.kernel.params.items()},
-            **{k: arr(getattr(s, k)) for k in ("noise", "x", "y", "y_mean",
-                                               "y_std", "chol", "alpha",
-                                               "mask", "linv")}}
 
 
 def _jax_iteration(x_obs, y_obs, x_cand, pdf):
@@ -109,7 +100,7 @@ def test_iteration_from_carried_state_matches_jax(record_property):
     through interop.py."""
     x_obs, y_obs, x_cand, pdf = _problem(seed=1)
     jstate, jeta, jidx, jw, jweights = _jax_iteration(x_obs, y_obs, x_cand, pdf)
-    state = gp_state_from_numpy(_state_to_numpy(jstate))
+    state = gp_state_from_numpy(gp_state_to_numpy(jstate))
     eta = tx.posterior_max_mean(state)
     xc = torch.as_tensor(x_cand)
     idx, w, weights = fused_acquisition(state, eta, xc, xc[:N_NYS],
@@ -126,7 +117,7 @@ def test_lfi_and_pi_match_jax(log):
     x_obs, y_obs, x_cand, _ = _problem(seed=2)
     jstate = jx.fit_gp(jnp.asarray(x_obs), jnp.asarray(y_obs),
                        jx.GPConfig(fit_iters=20), optimiser="adam")
-    state = gp_state_from_numpy(_state_to_numpy(jstate))
+    state = gp_state_from_numpy(gp_state_to_numpy(jstate))
     jp, tp = jpi.PI(jstate), tpi.PI(state)
     assert abs(float(tp.eta) - float(jp.eta)) <= 1e-4 * abs(float(jp.eta))
     want = np.asarray(jp(jnp.asarray(x_cand), log=log))
