@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..config import resolve_device
 from ..ops.kernels import _NO_LENGTHSCALE, KERNELS, Kernel
 from ..utils.linalg import jitter_cholesky
 
@@ -105,6 +106,8 @@ def materialize(params: GPParams, cfg: GPConfig) -> tuple[Kernel, torch.Tensor]:
 
 def init_params(cfg: GPConfig, n_dims: int, dtype=torch.float32,
                 device=None) -> GPParams:
+    """The starting raw params, on `device` (CUDA unless given)."""
+    device = resolve_device(device)
     shape = (n_dims,) if cfg.ard else ()
     f = lambda v: torch.tensor(v, dtype=dtype, device=device)
     raw_noise = _inv_interval(torch.sqrt(f(cfg.noise_lo * cfg.noise_hi)),

@@ -3,7 +3,7 @@
 A `sober_tpu` `GPParams` / `GPState` (and the `Kernel` inside) goes across
 as a dict of numpy arrays (`gp_state_to_numpy` makes one from a JAX state);
 these functions turn such dicts into the port's `GPParams` / `GPState` on a
-given device. The dict keys are the field names
+given device (CUDA unless given; `config.resolve_device`). The dict keys are the field names
 of `sober_tpu.gp.exact.GPParams` / `GPState`, with the kernel given as
 `kernel_name` and `kernel_params` (a Tanimoto kernel's hold only
 `outputscale`) and the config as a dict of `GPConfig` fields. A Tanimoto
@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .gp.exact import GPConfig, GPParams, GPState
 from .ops.kernels import Kernel
 from .priors.dataset import DatasetPrior
@@ -30,7 +31,8 @@ _STATE_ARRAYS = ("noise", "x", "y", "y_mean", "y_std", "chol", "alpha", "mask",
 def _tensor(a, device) -> Optional[torch.Tensor]:
     if a is None:
         return None
-    return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+    return torch.as_tensor(np.array(a, dtype=np.float32),
+                           device=resolve_device(device))
 
 
 def _no_mean_params(d: dict) -> None:

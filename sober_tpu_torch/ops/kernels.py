@@ -14,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from ..config import resolve_device
 from .rbf_gram import rbf_gram, rbf_gram_reference, sqdist
 from .tanimoto_gram import tanimoto_similarity
 
@@ -91,8 +92,11 @@ class Kernel:
 def make_kernel(name: str, n_dims: int | None = None, ard: bool = False,
                 lengthscale: float = 1.0, outputscale: float = 1.0,
                 dtype=torch.float32, device=None) -> Kernel:
+    """A kernel spec with scalar or ARD params on `device` (CUDA unless
+    given)."""
     if name not in KERNELS:
         raise ValueError(f"unknown kernel {name!r}; have {sorted(KERNELS)}")
+    device = resolve_device(device)
     params = {"outputscale": torch.tensor(outputscale, dtype=dtype,
                                           device=device)}
     if name in _NO_LENGTHSCALE:

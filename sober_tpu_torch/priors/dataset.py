@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..config import resolve_device
 from .base import BasePrior
 
 
@@ -18,8 +19,10 @@ class DatasetPrior(BasePrior):
     type = "dataset"
 
     def __init__(self, features, true_targets, device=None):
+        """features (n, d) and true_targets (n,), moved to `device` (CUDA
+        unless given; `config.resolve_device`)."""
         self.features = torch.as_tensor(features, dtype=torch.float32,
-                                        device=device).contiguous()
+                                        device=resolve_device(device)).contiguous()
         self.device = self.features.device
         self.true_targets = torch.as_tensor(
             true_targets, dtype=torch.float32, device=self.device).reshape(-1)

@@ -89,7 +89,8 @@ def _subsample(features, targets, n_pool, seed):
 
 def setup_malaria(data_path: Optional[str] = None, n_pool: int = None,
                   seed: int = 0, device=None) -> DatasetPrior:
-    """(experiments/_malaria.py:18-27)"""
+    """(experiments/_malaria.py:18-27); the prior lives on `device`, CUDA
+    unless given."""
     features, targets = _subsample(*create_malaria_dataset(data_path),
                                    n_pool, seed)
     return DatasetPrior(features, targets, device=device)
@@ -97,7 +98,8 @@ def setup_malaria(data_path: Optional[str] = None, n_pool: int = None,
 
 def setup_solvent(data_path: Optional[str] = None, n_pool: int = None,
                   seed: int = 0, device=None) -> DatasetPrior:
-    """(experiments/_solvent.py:18-27)"""
+    """(experiments/_solvent.py:18-27); the prior lives on `device`, CUDA
+    unless given."""
     features, targets = _subsample(*create_solvent_dataset(data_path),
                                    n_pool, seed)
     return DatasetPrior(features, targets, device=device)

@@ -10,15 +10,18 @@ from __future__ import annotations
 
 import torch
 
+from ..config import resolve_device
+
 
 class KeyRing:
-    """A stateful source of independently seeded generators on `device`.
+    """A stateful source of independently seeded generators on `device`
+    (CUDA unless given; `config.resolve_device`).
 
     The ring's own generator lives on the CPU, so drawing a new seed never
     waits for the device."""
 
     def __init__(self, seed: int = 0, device=None):
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self._gen = torch.Generator().manual_seed(seed)
 
     def next(self) -> torch.Generator:

@@ -76,7 +76,7 @@ def _check_batch(idx, w, n, available=None):
 # ----------------------------------------------------------------------------
 
 def test_keyring_generators_are_independent_and_reproducible():
-    a, b = KeyRing(7), KeyRing(7)
+    a, b = KeyRing(7, device="cpu"), KeyRing(7, device="cpu")
     ga, gb = a.next(), b.next()
     assert torch.equal(torch.rand(5, generator=ga), torch.rand(5, generator=gb))
     g1, g2 = a.split(2)
@@ -112,7 +112,7 @@ def test_resampling_inclusion_frequencies_match_jax(kind):
     w /= w.sum()
     tfn = getattr(tw, f"{kind}_resampling")
     jfn = getattr(jw, f"{kind}_resampling")
-    ring = KeyRing(0)
+    ring = KeyRing(0, device="cpu")
     wt = torch.as_tensor(w)
     mine = [tfn(ring.next(), wt, k).numpy() for _ in range(n_draw)]
     keys = jax.random.split(jax.random.key(0), n_draw)
@@ -126,7 +126,7 @@ def test_weighted_resampling_takes_positive_weights_first():
     then, as in JAX, they tie and the lower indices are taken."""
     w = torch.zeros(12)
     w[[2, 7, 9]] = torch.tensor([0.5, 0.3, 0.2])
-    ring = KeyRing(3)
+    ring = KeyRing(3, device="cpu")
     for _ in range(20):
         idx = tw.weighted_resampling(ring.next(), w, 5)
         assert set(idx[:3].tolist()) == {2, 7, 9}
@@ -145,9 +145,9 @@ def test_dataset_prior_consumption_matches_jax():
     returns the targets and consumes; pdf is uniform over what is left.
     The same sequence of queries leaves the same pool in both packages."""
     feats, targets, _, _ = _screening_problem()
-    prior = DatasetPrior(feats, targets)
+    prior = DatasetPrior(feats, targets, device="cpu")
     jprior = JaxDatasetPrior(feats, targets)
-    ring = KeyRing(0)
+    ring = KeyRing(0, device="cpu")
     x, y = prior.sample(ring.next(), 10)
     assert x.shape == (10, N_BITS) and prior.n_available == N_POOL - 10
     chosen = np.flatnonzero(~prior.available.numpy())
@@ -164,10 +164,11 @@ def test_dataset_prior_consumption_matches_jax():
     np.testing.assert_allclose(prior.pdf(x).numpy(),
                                np.asarray(jprior.pdf(jnp.asarray(x.numpy()))))
     assert torch.allclose(prior.logpdf(x), torch.log(prior.pdf(x)))
-    carried = dataset_prior_from_numpy(feats, targets, jprior.available)
+    carried = dataset_prior_from_numpy(feats, targets, jprior.available,
+                                       device="cpu")
     np.testing.assert_array_equal(carried.available.numpy(), jprior.available)
     # a draw larger than the pool gives the whole pool
-    small = DatasetPrior(feats[:4], targets[:4])
+    small = DatasetPrior(feats[:4], targets[:4], device="cpu")
     assert sorted(small.sample(ring.next(), 9)[1].tolist()) == sorted(
         targets[:4].tolist())
     assert small.n_available == 0
@@ -198,7 +199,7 @@ def carried():
     rows, carried across to the port."""
     feats, targets, obs, available = _screening_problem()
     js = jax_fit_tanimoto_gp(jnp.asarray(feats[obs]), jnp.asarray(targets[obs]))
-    ts = gp_state_from_numpy(gp_state_to_numpy(js))
+    ts = gp_state_from_numpy(gp_state_to_numpy(js), device="cpu")
     return feats, targets, available, js, ts
 
 
@@ -239,7 +240,7 @@ def test_next_batch_matches_jax(carried):
     jprior = JaxDatasetPrior(feats, targets)
     jprior.remove_sampled_index(np.flatnonzero(~available))
     jsober = JaxSober(jprior, js, kernel_type="weighted_predictive_covariance")
-    prior = dataset_prior_from_numpy(feats, targets, available)
+    prior = dataset_prior_from_numpy(feats, targets, available, device="cpu")
     sober = Sober(prior, ts, kernel_type="weighted_predictive_covariance")
 
     w_t = torch.where(prior.available, sober.pi(prior.features), 0.0).numpy()
@@ -270,7 +271,7 @@ def test_next_batch_matches_jax(carried):
 
 def test_sober_rejects_what_is_not_ported(carried):
     feats, targets, available, _, ts = carried
-    prior = dataset_prior_from_numpy(feats, targets, available)
+    prior = dataset_prior_from_numpy(feats, targets, available, device="cpu")
     sober = Sober(prior, ts)
     with pytest.raises(NotImplementedError):
         sober.next_batch(N_REC, N_NYS, BATCH, polish=True)
@@ -291,7 +292,7 @@ def test_should_reset_prior_matches_jax(carried):
     feats, targets, available, js, ts = carried
     jprior = JaxDatasetPrior(feats, targets)
     jsober = JaxSober(jprior, js)
-    sober = Sober(dataset_prior_from_numpy(feats, targets), ts)
+    sober = Sober(dataset_prior_from_numpy(feats, targets, device="cpu"), ts)
     rng = np.random.default_rng(9)
     for n_extra, recycle in itertools.product((0, 16, 40, 90), (True, False)):
         hist = rng.normal(size=N_OBS + n_extra)

@@ -135,7 +135,7 @@ def test_rescued_cholesky_gradients_finite_on_indefinite_gram():
     ys = (yp - mu) / torch.sqrt(var) * mask
     cfg = tx.GPConfig()
     params = tx.GPParams(*(p.requires_grad_(True)
-                           for p in tx.init_params(cfg, x.shape[1])))
+                           for p in tx.init_params(cfg, x.shape[1], device="cpu")))
     loss = tx.neg_mll(params, xp, ys, cfg, mask)
     loss.backward()
     assert np.isfinite(float(loss))
@@ -154,7 +154,7 @@ def test_build_state_matches_jax(masked):
     raw = _raw(False, x.shape[1])
     js = jx.build_state(_jax_params(raw), jnp.asarray(x), jnp.asarray(y),
                         jx.GPConfig(), None if mask is None else jnp.asarray(mask))
-    ts = tx.build_state(gp_params_from_numpy(raw), torch.as_tensor(x),
+    ts = tx.build_state(gp_params_from_numpy(raw, device="cpu"), torch.as_tensor(x),
                         torch.as_tensor(y), tx.GPConfig(),
                         None if mask is None else torch.as_tensor(mask))
     for name in ("chol", "alpha", "linv", "y", "y_mean", "y_std", "noise"):
@@ -169,7 +169,7 @@ def test_prediction_on_carried_state_matches_jax(masked):
                               cfg=jx.GPConfig(fit_iters=30))
     else:
         js = jx.fit_gp(jnp.asarray(x), jnp.asarray(y), jx.GPConfig(fit_iters=30))
-    ts = gp_state_from_numpy(gp_state_to_numpy(js))
+    ts = gp_state_from_numpy(gp_state_to_numpy(js), device="cpu")
     rng = np.random.default_rng(5)
     xq = rng.uniform(-1, 1, (64, 3)).astype(np.float32)
     xr = rng.uniform(-1, 1, (45, 3)).astype(np.float32)
@@ -190,7 +190,7 @@ def test_fit_adam_matches_jax():
     cfg_j, cfg_t = jx.GPConfig(fit_iters=60), tx.GPConfig(fit_iters=60)
     p_j = jx._fit_adam(jx.init_params(cfg_j, 3), jnp.asarray(x),
                        jnp.asarray(ys), cfg_j)
-    p_t = tx._fit_adam(tx.init_params(cfg_t, 3), torch.as_tensor(x),
+    p_t = tx._fit_adam(tx.init_params(cfg_t, 3, device="cpu"), torch.as_tensor(x),
                        torch.as_tensor(ys), cfg_t)
     loss_j = float(jx.neg_mll(p_j, jnp.asarray(x), jnp.asarray(ys), cfg_j))
     loss_t = float(tx.neg_mll(p_t, torch.as_tensor(x), torch.as_tensor(ys), cfg_t))
@@ -217,7 +217,7 @@ def test_fit_params_not_worse_than_jax(masked):
     loss_t = float(tx.neg_mll(p_t, torch.as_tensor(x), torch.as_tensor(ys),
                               cfg_t, tm))
     assert loss_t <= loss_j + 1e-3 * abs(loss_j)
-    init = tx.init_params(cfg_t, 3)
+    init = tx.init_params(cfg_t, 3, device="cpu")
     assert loss_t < float(tx.neg_mll(init, torch.as_tensor(x),
                                      torch.as_tensor(ys), cfg_t, tm))
 
@@ -256,14 +256,17 @@ def test_interop_round_trip_and_refusals():
     js = jx.fit_gp(jnp.asarray(x), jnp.asarray(y), jx.GPConfig(fit_iters=5),
                    optimiser="adam")
     d = gp_state_to_numpy(js)
-    ts = gp_state_from_numpy(d)
+    ts = gp_state_from_numpy(d, device="cpu")
     assert ts.config == tx.GPConfig(fit_iters=5)
     np.testing.assert_array_equal(ts.linv.numpy(), d["linv"])
     assert ts.mask is None and ts.kernel.name == "rbf"
-    p = gp_params_from_numpy(_params_to_numpy(jx.init_params(js.config, 3)))
+    p = gp_params_from_numpy(_params_to_numpy(jx.init_params(js.config, 3)),
+                             device="cpu")
     assert p.raw_lengthscale.dtype == torch.float32
     with pytest.raises(NotImplementedError):
-        gp_state_from_numpy({**d, "mean_params": {"c": np.zeros(())}})
+        gp_state_from_numpy({**d, "mean_params": {"c": np.zeros(())}},
+                            device="cpu")
     with pytest.raises(NotImplementedError):
         gp_state_from_numpy({**d, "config": {**d["config"],
-                                             "mean_priors": (1.0,)}})
+                                             "mean_priors": (1.0,)}},
+                            device="cpu")

@@ -47,7 +47,7 @@ def test_gram_matches_jax(name, ard):
     want = np.asarray(jk.KERNELS[name](
         {"lengthscale": jnp.asarray(ls), "outputscale": jnp.asarray(os_)},
         jnp.asarray(x), jnp.asarray(y)))
-    kern = make_kernel(name, n_dims=4, ard=ard)
+    kern = make_kernel(name, n_dims=4, ard=ard, device="cpu")
     kern.params["lengthscale"] = torch.as_tensor(ls)
     kern.params["outputscale"] = torch.as_tensor(os_)
     got = kern.gram(torch.as_tensor(x), torch.as_tensor(y)).numpy()

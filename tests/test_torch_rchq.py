@@ -26,7 +26,7 @@ def _jax_rbf(ls=0.5):
 
 
 def _torch_rbf(ls=0.5):
-    k = make_kernel("rbf", lengthscale=ls)
+    k = make_kernel("rbf", lengthscale=ls, device="cpu")
     return lambda a, b: k.gram(a, b)
 
 

@@ -100,7 +100,7 @@ def test_iteration_from_carried_state_matches_jax(record_property):
     through interop.py."""
     x_obs, y_obs, x_cand, pdf = _problem(seed=1)
     jstate, jeta, jidx, jw, jweights = _jax_iteration(x_obs, y_obs, x_cand, pdf)
-    state = gp_state_from_numpy(gp_state_to_numpy(jstate))
+    state = gp_state_from_numpy(gp_state_to_numpy(jstate), device="cpu")
     eta = tx.posterior_max_mean(state)
     xc = torch.as_tensor(x_cand)
     idx, w, weights = fused_acquisition(state, eta, xc, xc[:N_NYS],
@@ -117,7 +117,7 @@ def test_lfi_and_pi_match_jax(log):
     x_obs, y_obs, x_cand, _ = _problem(seed=2)
     jstate = jx.fit_gp(jnp.asarray(x_obs), jnp.asarray(y_obs),
                        jx.GPConfig(fit_iters=20), optimiser="adam")
-    state = gp_state_from_numpy(gp_state_to_numpy(jstate))
+    state = gp_state_from_numpy(gp_state_to_numpy(jstate), device="cpu")
     jp, tp = jpi.PI(jstate), tpi.PI(state)
     assert abs(float(tp.eta) - float(jp.eta)) <= 1e-4 * abs(float(jp.eta))
     want = np.asarray(jp(jnp.asarray(x_cand), log=log))

@@ -63,7 +63,7 @@ def test_similarity_matches_jax_pallas_and_oracle(n, m, d):
     want = _oracle(x, y)
     ref = tanimoto_similarity_reference(torch.as_tensor(x),
                                         torch.as_tensor(y)).numpy()
-    kern = make_kernel("tanimoto", outputscale=os_)
+    kern = make_kernel("tanimoto", outputscale=os_, device="cpu")
     gram = kern.gram(torch.as_tensor(x), torch.as_tensor(y)).numpy()
     jax_gram = np.asarray(jk.tanimoto_gram(
         {"outputscale": jnp.float32(os_)}, jnp.asarray(x), jnp.asarray(y)))
@@ -165,7 +165,7 @@ def test_carried_state_predictions_match_jax():
     modes agree to 1e-5."""
     x, y = _gp_data(seed=1)
     js = jax_fit_tanimoto_gp(jnp.asarray(x), jnp.asarray(y))
-    ts = gp_state_from_numpy(gp_state_to_numpy(js))
+    ts = gp_state_from_numpy(gp_state_to_numpy(js), device="cpu")
     xq = _bits(50, 256, 5, density=0.05, zero_rows=(7,))
     xr = _bits(30, 256, 6, density=0.05)
     jq, tq = jnp.asarray(xq), torch.as_tensor(xq)
@@ -203,10 +203,10 @@ def test_tanimoto_kernel_has_no_lengthscale():
     """make_kernel and materialize give a Tanimoto kernel only an
     outputscale, as the JAX package does; the raw lengthscale stays in
     GPParams, unused."""
-    assert set(make_kernel("tanimoto", n_dims=8, ard=True).params) == {"outputscale"}
-    assert set(make_kernel("rbf").params) == {"outputscale", "lengthscale"}
+    assert set(make_kernel("tanimoto", n_dims=8, ard=True, device="cpu").params) == {"outputscale"}
+    assert set(make_kernel("rbf", device="cpu").params) == {"outputscale", "lengthscale"}
     cfg = tx.GPConfig(kernel_name="tanimoto")
-    params = tx.init_params(cfg, 256)
+    params = tx.init_params(cfg, 256, device="cpu")
     kernel, noise = tx.materialize(params, cfg)
     jkernel, _ = jx.materialize(jx.init_params(jx.GPConfig(
         kernel_name="tanimoto"), 256), jx.GPConfig(kernel_name="tanimoto"))
@@ -238,7 +238,7 @@ def test_unused_lengthscale_gets_zero_grad():
     y = torch.as_tensor((y - y.mean()) / y.std(ddof=1))
     x = torch.as_tensor(x)
     cfg = tx.GPConfig(kernel_name="tanimoto", fit_iters=10)
-    params = tx._leaves(tx.init_params(cfg, x.shape[1]))
+    params = tx._leaves(tx.init_params(cfg, x.shape[1], device="cpu"))
     tx._set_grads(params, tx.neg_mll(params, x, y, cfg), cfg)
     assert torch.equal(params.raw_lengthscale.grad, torch.zeros(()))
     assert float(params.raw_outputscale.grad.abs()) > 0
@@ -246,4 +246,4 @@ def test_unused_lengthscale_gets_zero_grad():
         fitted = tx.fit_params(x, y, cfg, optimiser=optimiser)
         assert float(fitted.raw_lengthscale) == 0.0
         assert (float(tx.neg_mll(fitted, x, y, cfg))
-                <= float(tx.neg_mll(tx.init_params(cfg, x.shape[1]), x, y, cfg)))
+                <= float(tx.neg_mll(tx.init_params(cfg, x.shape[1], device="cpu"), x, y, cfg)))
