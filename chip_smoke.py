@@ -67,6 +67,18 @@ SOURCES = {"rbf_gram": "sober_tpu_torch/csrc/rbf_gram.cu",
            "pack_bits": "sober_tpu_torch/csrc/tanimoto_gram.cu"}
 
 
+# NVIDIA's H100 SXM peaks (dense): HBM bytes/s, float32 and float64 FLOP/s
+# outside the tensor cores, int8 tensor-core OP/s
+HBM_RATE, FP32_PEAK, FP64_PEAK, INT8_PEAK = 3.35e12, 67e12, 34e12, 1979e12
+
+
+def bound_ms(n_bytes: float, n_ops: float, peak: float) -> tuple[float, str]:
+    """The least time for the work, in ms, and what sets it: the bytes over
+    the HBM rate or the operations over their peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_RATE, n_ops / peak
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def emit(**row) -> None:
     print(json.dumps(row), flush=True)
 
@@ -78,12 +90,16 @@ def require(ok: bool, what: str) -> None:
 
 def cuda_ms(fn, reps: int = 10) -> float:
     """Median of `reps` runs of fn, each timed by CUDA events after a
-    warm-up, in ms."""
+    warm-up, in ms. A sleep kernel queued before the start event keeps the
+    card busy while the host issues fn, so the time is the card's alone; of
+    a call whose host work outlasts the sleep (a plain Python loop), the
+    sleep's ~0.5 ms is left out."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -92,17 +108,19 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def phase_device() -> str:
+def phase_device() -> tuple[str, float]:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs only on a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+    query = lambda fields, fmt: subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0],
-         count=torch.cuda.device_count())
-    return smi
+    smi = query("name,power.limit", "csv,noheader")
+    sm_clock = float(query("clocks.max.sm", "csv,noheader,nounits"))
+    emit(phase="device", nvidia_smi=smi, max_sm_clock_mhz=sm_clock,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0], count=torch.cuda.device_count())
+    return smi, sm_clock
 
 
 def phase_build() -> None:
@@ -142,31 +160,71 @@ def phase_rbf(summary: dict) -> None:
             emit(phase="rbf_gram", shape=[n, m, d], ard=ard, label=label,
                  max_abs_err=err, tol=1e-5 * float(os_), ms=ms, plain_ms=plain_ms)
             if n == 512 and not ard:
+                # x and y read once, the Gram written once; 3 d + 2 flops an
+                # entry (scale, difference, square-add; exp and scale)
+                bound, by = bound_ms(4.0 * ((n + m) * d + n * m),
+                                     float(n) * m * (3 * d + 2), FP32_PEAK)
                 summary["rbf_gram"] = {"max_abs_err": err, "ms": ms,
-                                       "plain_ms": plain_ms, "shape": [n, m, d]}
+                                       "plain_ms": plain_ms, "bound_ms": bound,
+                                       "bound_by": by, "shape": [n, m, d]}
 
 
-def phase_car(summary: dict) -> None:
+def car_problem(m, q, dev):
+    """A CAR on m points with m - q moments and 7 padding rows, from numpy
+    seed m: (x, mu, mask, big_n, n_take, active0)."""
     from sober_tpu_torch.core.rchq import null_basis
-    from sober_tpu_torch.ops.car import (car_eliminate, car_eliminate_reference,
-                                         reference_horizon)
+
+    rng = np.random.default_rng(m)
+    x = torch.as_tensor(rng.normal(size=(m, m - q)), dtype=torch.float32, device=dev)
+    mu = rng.uniform(0.1, 1.0, m)
+    mask = np.ones(m)
+    mask[-7:] = 0.0                           # padding rows
+    mu[-7:] = 0.0
+    mu = torch.as_tensor(mu / mu.sum(), dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+    return (x, mu, mask) + null_basis(x, mu, m - q, mask)
+
+
+def car_bounds(m, q, n_elim, plan, sync_step_ms, sm_clock_mhz):
+    """The CAR kernel's roofline (its inputs read and outputs written once;
+    in step t, 2 m (q - t) float64 flops of the dot product and as many
+    float32 flops of the rank-1 update, over the steps that eliminated a
+    lane, taken as the first n_elim) and its dependency floor: n_take times
+    the measured time of a step that finds no lane (its barriers and
+    reductions), plus one read of each step's live rows at 128
+    shared-memory bytes a clock per SM."""
+    flops = 2.0 * m * sum(q - t for t in range(n_elim))
+    t_bytes = 4.0 * (m * q + 4 * m) / HBM_RATE
+    t_ops = flops / FP64_PEAK + flops / FP32_PEAK
+    roof_ms, by = 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    width = -(-m // plan.cluster)
+    pass_s = sum(4.0 * (q - t) * width for t in range(q)) / (128 * sm_clock_mhz * 1e6)
+    return roof_ms, by, q * sync_step_ms + 1e3 * pass_s
+
+
+def phase_car(summary: dict, sm_clock_mhz: float) -> None:
+    from sober_tpu_torch.ops.car import (MAX_CLUSTER, CarPlan, _fit, _launch,
+                                         car_eliminate, car_eliminate_reference,
+                                         car_plan, reference_horizon)
 
     dev = torch.device("cuda")
-    for m, q in ((400, 200), (200, 100)):
-        rng = np.random.default_rng(m)
-        p = m - q
-        x = torch.as_tensor(rng.normal(size=(m, p)), dtype=torch.float32, device=dev)
-        mu = rng.uniform(0.1, 1.0, m)
-        mask = np.ones(m)
-        mask[-7:] = 0.0                       # padding rows
-        mu[-7:] = 0.0
-        mu = torch.as_tensor(mu / mu.sum(), dtype=torch.float32, device=dev)
-        mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
-        big_n, n_take, active0 = null_basis(x, mu, m - p, mask)
+    # the main path's shapes (a cluster at m=400, one block at m=200) and
+    # the L2 variant's; beside the chosen plan, the alternatives are timed
+    # on the same inputs: every other cluster size that holds the basis, and
+    # the L2 kernel (the first port's design)
+    for m, q in ((400, 200), (200, 100), (1000, 500)):
+        x, mu, mask, big_n, n_take, active0 = car_problem(m, q, dev)
+        plan = car_plan(m, n_take)
+        alternatives = tuple(p for c in (1, 2, 4, MAX_CLUSTER)
+                             if (p := _fit(m, n_take, c)) not in (None, plan))
+        alternatives += (CarPlan("l2", 1, 0),) if plan.variant != "l2" else ()
+        before = dict(car_eliminate.variant_launches)
 
         # full run: the invariants, for both
         mu_k, el_k = car_eliminate(mu, big_n, mask, n_take)
         mu_r, el_r = car_eliminate_reference(mu, big_n, mask, n_take)
+        require(car_eliminate.variant_launches[plan.variant]
+                == before[plan.variant] + 1, f"car m={m}: {plan.variant} did not run")
         w_k, w_r = mu_k * (1 - el_k) * active0, mu_r * (1 - el_r) * active0
         moment = x.T @ mu
         mom_k = float((x.T @ w_k - moment).abs().max())
@@ -177,24 +235,41 @@ def phase_car(summary: dict) -> None:
         require(mom_k < 1e-4 and mom_r < 1e-4, f"car m={m}: moments {mom_k} {mom_r}")
         require(n_k == n_r, f"car m={m}: {n_k} vs {n_r} eliminations")
         # exact agreement over the steps where fp32 rounding does not yet
-        # decide the path (see reference_horizon)
+        # decide the path (see reference_horizon), for every plan timed
         k = reference_horizon(mu, big_n, mask, n_take)
         require(k >= 10, f"car m={m}: reference horizon only {k} steps")
-        mu_kh, el_kh = car_eliminate(mu, big_n, mask, k)
         mu_rh, el_rh = car_eliminate_reference(mu, big_n, mask, k)
-        same = bool(torch.equal(el_kh, el_rh))
-        dmu = float((mu_kh - mu_rh).abs().max())
-        require(same and dmu <= 1e-5, f"car m={m} k={k}: same={same} dmu={dmu}")
-        full_same = bool(torch.equal(el_k, el_r))
-        ms = cuda_ms(lambda: car_eliminate(mu, big_n, mask, n_take))
-        plain_ms = cuda_ms(lambda: car_eliminate_reference(mu, big_n, mask, n_take))
-        emit(phase="car_eliminate", m=m, q=q, n_take=n_take, eliminated=n_k,
-             horizon=k, same_set_at_horizon=same, max_abs_err=dmu,
-             same_set_full_run=full_same, moment_err=mom_k,
-             moment_err_reference=mom_r, ms=ms, plain_ms=plain_ms)
+        times, dmu = {}, 0.0
+        for alt in (plan,) + alternatives:
+            run = lambda kk=n_take, a=alt: _launch(mu, big_n, mask, kk, a)
+            mu_kh, el_kh = run(k)
+            same = bool(torch.equal(el_kh, el_rh))
+            err = float((mu_kh - mu_rh).abs().max())
+            require(same and err <= 1e-5,
+                    f"car m={m} {alt.variant}/{alt.cluster} k={k}: same={same} dmu={err}")
+            label = f"{alt.variant}{alt.cluster if alt.variant == 'cluster' else ''}"
+            times[label] = cuda_ms(run)
+            dmu = max(dmu, err)
+        ms = times[f"{plan.variant}{plan.cluster if plan.variant == 'cluster' else ''}"]
+        plain_ms = cuda_ms(lambda: car_eliminate_reference(mu, big_n, mask, n_take),
+                           reps=10 if m < 1000 else 3)
+        # a basis of zero columns: every step finds no lane, so a step is
+        # only its barriers and reductions
+        zero_n = torch.zeros_like(big_n)
+        zero_ms = cuda_ms(lambda: car_eliminate(mu, zero_n, mask, n_take))
+        roof_ms, by, floor_ms = car_bounds(m, n_take, n_k, plan, zero_ms / n_take,
+                                           sm_clock_mhz)
+        emit(phase="car_eliminate", m=m, q=n_take, variant=plan.variant,
+             cluster=plan.cluster, smem_bytes=plan.smem_bytes, eliminated=n_k,
+             horizon=k, max_abs_err=dmu, same_set_full_run=bool(torch.equal(el_k, el_r)),
+             moment_err=mom_k, moment_err_reference=mom_r, ms=ms, ms_by_plan=times,
+             plain_ms=plain_ms, no_lane_run_ms=zero_ms, bound_ms=roof_ms,
+             bound_by=by, step_floor_ms=floor_ms)
         if m == 400:
             summary["car_eliminate"] = {"max_abs_err": dmu, "ms": ms,
-                                        "plain_ms": plain_ms, "shape": [m, q]}
+                                        "plain_ms": plain_ms, "bound_ms": roof_ms,
+                                        "bound_by": by, "step_floor_ms": floor_ms,
+                                        "shape": [m, n_take]}
 
 
 def make_problem(n_cand, n_nys, batch, d, n_obs, device):
@@ -296,6 +371,38 @@ def phase_small_vs_cpu() -> None:
          moment_err_cpu=out["cpu"][2])
 
 
+def car_variant_check(batch: int, before: dict, label: str) -> dict:
+    """The CAR launches by variant since `before`; every one must be the
+    variant car_plan picks at the path's shape (m = 2 batch barycenters)."""
+    from sober_tpu_torch.ops.car import car_eliminate, car_plan
+
+    got = {k: n - before[k] for k, n in car_eliminate.variant_launches.items()}
+    want = car_plan(2 * batch, batch).variant
+    require(got[want] == sum(got.values()) > 0,
+            f"{label}: CAR variants {got}, want only {want}")
+    return got
+
+
+def car_profile(run) -> dict:
+    """torch.profiler over one run: the CAR kernels' device time and count,
+    and the device time of all kernels. None where the trace shows no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    car = [e for e in rows if "car_smem_kernel" in e.key or "car_l2_kernel" in e.key]
+    total = sum(dev_us(e) for e in rows)
+    return {"car_device_ms": sum(dev_us(e) for e in car) / 1e3 if total else None,
+            "car_kernels": sum(e.count for e in car),
+            "all_device_ms": total / 1e3 if total else None}
+
+
 def phase_iteration(cfg_row, counts: dict) -> None:
     from sober_tpu_torch.gp.exact import GPConfig, fit_params, predictive_covariance
     from sober_tpu_torch.ops.car import car_eliminate
@@ -313,6 +420,7 @@ def phase_iteration(cfg_row, counts: dict) -> None:
 
     rbf_gram.launches = 0
     car_eliminate.launches = 0
+    variants0 = dict(car_eliminate.variant_launches)
     stages, times = {}, []
     for it in range(1 + ITERS):                       # one warm-up
         torch.cuda.synchronize()
@@ -323,6 +431,7 @@ def phase_iteration(cfg_row, counts: dict) -> None:
         if it:
             times.append(time.perf_counter() - t0)
     n_rbf, n_car = rbf_gram.launches, car_eliminate.launches
+    variants = car_variant_check(batch, variants0, name)
     counts["rbf_gram"] = counts.get("rbf_gram", 0) + n_rbf
     counts["car_eliminate"] = counts.get("car_eliminate", 0) + n_car
     require(n_car == car_per_iter * (1 + ITERS),
@@ -333,12 +442,15 @@ def phase_iteration(cfg_row, counts: dict) -> None:
     mom = moment_error(lambda a, b: predictive_covariance(state, a, b),
                        x_cand, x_nys, weights, idx, w, batch)
     require(mom < 5e-3, f"{name}: moment error {mom}")
+    profiled = car_profile(lambda: iteration(x_obs, y_obs, x_cand, x_nys, pdf,
+                                             params_prev, cfg, batch))
     emit(phase="iteration", config=name, n_cand=n_cand, batch=batch, n_nys=n_nys,
          d=d, n_obs=n_obs, iteration_s_median=statistics.median(times),
          iteration_s=times,
          stage_ms_median={k: statistics.median(v[1:]) for k, v in stages.items()},
          launches_per_iteration={"rbf_gram": n_rbf / (1 + ITERS),
                                  "car_eliminate": n_car / (1 + ITERS)},
+         car_variant_launches=variants, profile_one_iteration=profiled,
          moment_err=mom, w_sum=float(w.sum()),
          lengthscale=float(state.kernel.params["lengthscale"]),
          noise=float(state.noise),
@@ -402,10 +514,19 @@ def phase_tanimoto(summary: dict, pool: np.ndarray) -> None:
              pack_ms=pack_ms, pack_plain_ms=pack_plain_ms, ms=ms,
              plain_ms=plain_ms)
         if n == len(pool):
+            # the float32 fingerprints read once and the Gram written once;
+            # the intersections as an int8 tensor-core product, 2 n m d ops
+            bound, by = bound_ms(4.0 * ((n + m) * d + n * m), 2.0 * n * m * d,
+                                 INT8_PEAK)
             summary["tanimoto_gram"] = {"max_abs_err": err, "ms": ms,
-                                        "plain_ms": plain_ms, "shape": [n, m, d]}
+                                        "plain_ms": plain_ms, "bound_ms": bound,
+                                        "bound_by": by, "shape": [n, m, d]}
+            # the pool read once; the words and the counts written once
+            bound, by = bound_ms(4.0 * (n * d + n * d // 32 + n), float(n) * d,
+                                 FP32_PEAK)
             summary["pack_bits"] = {"max_abs_err": pack_err, "ms": pack_ms,
-                                    "plain_ms": pack_plain_ms, "shape": [n, d]}
+                                    "plain_ms": pack_plain_ms, "bound_ms": bound,
+                                    "bound_by": by, "shape": [n, d]}
     bad = pool_t[:64].clone()
     bad[3, 7] = 0.5
     try:
@@ -543,6 +664,7 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
 
     for fn in (tanimoto_similarity, pack_bits, car_eliminate, rbf_gram):
         fn.launches = 0
+    variants0 = dict(car_eliminate.variant_launches)
     times = []
     for it in range(1 + ITERS):                       # one warm-up
         torch.cuda.synchronize()
@@ -553,6 +675,7 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
             times.append(time.perf_counter() - t0)
     n_tan, n_car = tanimoto_similarity.launches, car_eliminate.launches
     n_pack, n_rbf = pack_bits.launches, rbf_gram.launches
+    variants = car_variant_check(batch, variants0, "dataset")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name, n in (("tanimoto_gram", n_tan), ("car_eliminate", n_car)):
         require(n == DATASET_LAUNCHES[name] * (1 + ITERS),
@@ -578,16 +701,19 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
          launches_per_iteration={"tanimoto_gram": n_tan / (1 + ITERS),
                                  "pack_bits": n_pack / (1 + ITERS),
                                  "car_eliminate": n_car / (1 + ITERS)},
+         car_variant_launches=variants,
+         profile_one_iteration=car_profile(
+             lambda: sober.next_batch(n_rec, n_nys, batch)),
          moment_err_max=max(moms), w_sum=float(w_b.sum()),
          n_pos=int(sober.last_npos), peak_mem_gib=peak_gib)
 
 
 def main() -> None:
-    smi = phase_device()
+    smi, sm_clock = phase_device()
     phase_build()
     summary, counts = {}, {}
     phase_rbf(summary)
-    phase_car(summary)
+    phase_car(summary, sm_clock)
     t0 = time.perf_counter()
     pool, targets = make_pool()
     emit(phase="dataset_pool", shape=list(pool.shape),
@@ -605,7 +731,12 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": counts[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"], "shape": s["shape"]})
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"],
+                        # no single PyTorch call computes any of the four
+                        "library_ms": None, "shape": s["shape"],
+                        **({"step_floor_ms": s["step_floor_ms"]}
+                           if "step_floor_ms" in s else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

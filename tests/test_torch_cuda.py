@@ -9,8 +9,8 @@ import pytest
 import torch
 
 from sober_tpu_torch.core.rchq import null_basis
-from sober_tpu_torch.ops.car import (car_eliminate, car_eliminate_reference,
-                                     reference_horizon)
+from sober_tpu_torch.ops.car import (MAX_M, car_eliminate, car_eliminate_reference,
+                                     car_plan, reference_horizon)
 from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
 from sober_tpu_torch.ops.tanimoto_gram import (pack_bits, pack_bits_reference,
                                                tanimoto_similarity,
@@ -56,19 +56,34 @@ def test_rbf_kernel_rejects_what_it_cannot_run(cuda):
         rbf_gram(p, torch.zeros((3, 4), device=cuda).T, x)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,q", [(400, 200), (200, 100), (64, 47)])
-def test_car_kernel_matches_reference_on_card(cuda, m, q):
-    rng = np.random.default_rng(m)
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+def _car_problem(m, q, seed, device):
+    """A CAR on m points with m - q moments and 7 padding rows, from a numpy
+    seed: (x, mu, mask, big_n, n_take, active0)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     x = t(rng.normal(size=(m, m - q)))
     mu = rng.uniform(0.1, 1.0, m)
     mask = np.ones(m)
     mask[-7:] = mu[-7:] = 0.0
     mu, mask = t(mu / mu.sum()), t(mask)
     big_n, n_take, active0 = null_basis(x, mu, m - q, mask)
+    return x, mu, mask, big_n, n_take, active0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,q,variant", [(400, 200, "cluster"), (390, 197, "cluster"),
+                                         (200, 100, "smem"), (64, 47, "smem"),
+                                         (1000, 500, "l2")])
+def test_car_kernel_matches_reference_on_card(cuda, m, q, variant):
+    """Each variant at its shapes: the invariants over the full run, the
+    reference's elimination count, and an exact match up to the horizon."""
+    x, mu, mask, big_n, n_take, active0 = _car_problem(m, q, m, cuda)
+    assert car_plan(m, n_take).variant == variant
+    before = car_eliminate.variant_launches[variant]
     mu_k, el_k = car_eliminate(mu, big_n, mask, n_take)
     mu_r, el_r = car_eliminate_reference(mu, big_n, mask, n_take)
+    torch.cuda.synchronize()
+    assert car_eliminate.variant_launches[variant] == before + 1
     w_k = mu_k * (1 - el_k) * active0
     assert bool((w_k >= 0).all()) and bool((w_k[-7:] == 0).all())
     assert float((x.T @ w_k - x.T @ mu).abs().max()) < 1e-4
@@ -79,6 +94,37 @@ def test_car_kernel_matches_reference_on_card(cuda, m, q):
     mu_r, el_r = car_eliminate_reference(mu, big_n, mask, k)
     assert torch.equal(el_k, el_r)
     assert float((mu_k - mu_r).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,q,batch", [(400, 200, 2), (200, 100, 3), (1000, 500, 2)])
+def test_car_kernel_batch_equals_single_runs(cuda, m, q, batch):
+    """A grid of independent CARs (batch blocks or clusters): each row is bit
+    for bit the kernel's own single run on that row."""
+    probs = [_car_problem(m, q, m + s, cuda) for s in range(batch)]
+    n_take = min(p[4] for p in probs)
+    mu = torch.stack([p[1] for p in probs])
+    mask = torch.stack([p[2] for p in probs])
+    big_n = torch.stack([p[3][:, :n_take] for p in probs]).contiguous()
+    mu_b, el_b = car_eliminate(mu, big_n, mask, n_take)
+    for k in range(batch):
+        mu_1, el_1 = car_eliminate(mu[k], big_n[k].contiguous(), mask[k], n_take)
+        assert torch.equal(mu_b[k], mu_1) and torch.equal(el_b[k], el_1)
+        assert int(el_1.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_car_kernel_rejects_what_it_cannot_run(cuda):
+    mu = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="n_take"):
+        car_eliminate(mu, torch.zeros((8, 4), device=cuda), mu, 5)
+    with pytest.raises(TypeError):
+        car_eliminate(mu.double(), torch.zeros((8, 4), device=cuda).double(),
+                      mu.double(), 2)
+    with pytest.raises(ValueError, match="outside"):
+        car_eliminate(torch.zeros(MAX_M + 1, device=cuda),
+                      torch.zeros((MAX_M + 1, 1), device=cuda),
+                      torch.zeros(MAX_M + 1, device=cuda), 1)
 
 
 def _bits(rng, n, d, zero_rows=()):

@@ -14,8 +14,9 @@ from sober_tpu.ops import kernels as jk
 from sober_tpu.ops.pallas_car import car_eliminate_pallas
 from sober_tpu.ops.pallas_kernels import rbf_gram_pallas
 from sober_tpu_torch.ops import _build
-from sober_tpu_torch.ops.car import (car_eliminate, car_eliminate_reference,
-                                     reference_horizon)
+from sober_tpu_torch.ops.car import (MAX_M, MAX_WIDTH, SMEM_LIMIT, CarPlan,
+                                     car_eliminate, car_eliminate_reference,
+                                     car_plan, reference_horizon)
 from sober_tpu_torch.ops.kernels import make_kernel
 from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
 
@@ -179,3 +180,62 @@ def test_reference_horizon_bounds_exact_agreement():
                                        t(mask, torch.float64), k)
     assert torch.equal(e32.double(), e64)
     assert float((m32.double() - m64).abs().max()) <= 1e-6
+
+
+# (m, q) -> the plan: the main path's shapes (m=200, q=100 at batch 100 and
+# in screening; m=400, q=200 at batch 200), the card tests' shapes, and the
+# edges of each variant
+CAR_PLANS = {
+    (200, 100): CarPlan("smem", 1, 94_048),
+    (400, 200): CarPlan("cluster", 8, 56_000),
+    (1000, 500): CarPlan("l2", 1, 2_000),
+    (64, 47): CarPlan("smem", 1, 15_936),
+    (390, 197): CarPlan("cluster", 8, 54_928),
+    (1, 0): CarPlan("smem", 1, 48),
+    (256, 208): CarPlan("smem", 1, 227_776),     # the largest q in one block
+    (256, 209): CarPlan("cluster", 8, 38_944),
+    (257, 10): CarPlan("cluster", 8, 11_280),    # m past one block's lanes
+    (800, 120): CarPlan("cluster", 8, 76_640),
+    (2048, 152): CarPlan("cluster", 8, 227_104),  # the largest q in 8 blocks
+    (2048, 153): CarPlan("l2", 1, 612),
+    (2049, 1): CarPlan("l2", 1, 4),              # past 8 blocks' lanes
+    (MAX_M, 10): CarPlan("l2", 1, 40),
+}
+
+
+@pytest.mark.parametrize("m,q", sorted(CAR_PLANS))
+def test_car_plan_picks_variant_by_shape(m, q):
+    plan = car_plan(m, q)
+    assert plan == CAR_PLANS[(m, q)]
+    if plan.variant != "l2":
+        width = -(-m // plan.cluster)
+        qp = -(-q // 8) * 8
+        assert width <= MAX_WIDTH and plan.smem_bytes <= SMEM_LIMIT
+        # candidate slots, the Householder vector (fp64 and fp32), the
+        # columns of qp + 4 words
+        assert plan.smem_bytes == (32 * plan.cluster * width + 12 * qp
+                                   + 4 * width * (qp + 4))
+        # a quarter warp's 16-byte loads (8 columns, one row group) fall in
+        # 8 different groups of 4 banks
+        assert len({(c * (qp + 4) // 4) % 8 for c in range(8)}) == 8
+
+
+@pytest.mark.parametrize("m,q", [(0, 5), (MAX_M + 1, 10), (10, -1)])
+def test_car_plan_rejects_what_no_variant_runs(m, q):
+    with pytest.raises(ValueError):
+        car_plan(m, q)
+
+
+def test_car_batch_on_cpu_is_the_reference_per_row():
+    """A (b, m) batch on the CPU: each row is the reference's own result,
+    and nothing launches."""
+    rows = [_car_inputs(np.random.default_rng(s), 24, 9, 3) for s in (1, 2, 3)]
+    t = lambda k: torch.as_tensor(np.stack([r[k] for r in rows]))
+    n_car = car_eliminate.launches
+    mu_b, el_b = car_eliminate(t(2), t(0), t(3), 12)
+    assert mu_b.shape == el_b.shape == (3, 24)
+    for k, (big_n, _, mu, mask) in enumerate(rows):
+        want = car_eliminate_reference(torch.as_tensor(mu), torch.as_tensor(big_n),
+                                       torch.as_tensor(mask), 12)
+        assert torch.equal(mu_b[k], want[0]) and torch.equal(el_b[k], want[1])
+    assert car_eliminate.launches == n_car
