@@ -14,10 +14,11 @@
 //   rows >= t -= (2 / max(|v|^2, 1e-30)) v (v^T rows)   (skipped if !valid)
 // Row t is then retired: rows are the transposed basis (q, m), so the
 // drop-first-column step of the XLA loop is just moving on to row t + 1.
-// |phi|^2 leaves out the eliminated lanes: the reflection maps column idx to
-// a multiple of e_t, so below row t an eliminated column holds only fp32
-// rounding (squares ~1e-14, against the 1e-10 cut), and it never feeds
-// another column or lane again.
+// |phi|^2 leaves out the eliminated lanes: in exact arithmetic the
+// reflection maps column idx to a multiple of e_t, so below row t an
+// eliminated column is zero (fp32 rounding in car_l2_kernel, its entries
+// of step t in car_smem_kernel, which stops reflecting it), and it never
+// feeds another column or lane again.
 //
 // What bounds it on this card: the chain of dependent steps. A step is
 // O(m q) flops (80k at m=400, q=200: about a microsecond of one SM's fp64
@@ -37,9 +38,11 @@
 //     nt[j * stride], stride = q rounded up to 8, plus 4 (4 mod 8 words);
 //   - 4 threads share a column: thread g takes rows r0 + 4 g + 16 k .. + 3,
 //     r0 = t rounded down to 4, with one 16-byte load of the column, of v
-//     and of vd (two) for four rows. A warp holds 8 columns; a quarter warp
-//     (8 columns, one g) then touches 8 different 16-byte bank groups. Rows
-//     below t in the first load take v = 0, an exact no-op;
+//     and of vd (two) for four rows; its first NX loads of the column stay
+//     in registers from the dot product to the update. A warp holds 8
+//     columns; a quarter warp (8 columns, one g) then touches 8 different
+//     16-byte bank groups. Rows below t in the first load take v = 0, an
+//     exact no-op;
 //   - w = v . column is accumulated in fp64 (the elimination is chaotic in
 //     fp32: rounding in mu grows from step to step, and a sequential fp32
 //     sum over q rows drifted ~10x further from an fp64 run than the
@@ -51,11 +54,11 @@
 //     So the owner never writes column idx after step t has chosen it, and
 //     the other blocks may copy it while the owner reflects its other
 //     columns: a step needs one cluster barrier and one block barrier;
-//   - a lane's candidate (phi^2 and its key) goes into its slot in the
+//   - each warp merges its 8 lanes' candidates (phi^2 by a butterfly, the
+//     least key by two redux steps) and stores them into its slot in the
 //     shared memory of every block of the cluster (a buffer per step
-//     parity). After the cluster barrier, warp 0 of every block merges the m
-//     slots in the same order (a tree, a butterfly for phi^2 and two redux
-//     steps for the least key), so every block reaches the same lane, alpha,
+//     parity). After the cluster barrier, warp 0 of every block merges the
+//     slots in the same order, so every block reaches the same lane, alpha,
 //     flip and validity, bit for bit. It then copies column idx, rows >= t,
 //     from its owner into its own v and computes |u|^2 and the coefficient
 //     itself; the block barrier hands v to the other warps;
@@ -86,6 +89,7 @@ constexpr int MAX_CLUSTER = 8;
 constexpr int SMEM_LIMIT = 232448 - 1024;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned long long NO_KEY = ~0ull;
+constexpr int NX = 4;              // 16-byte loads of a column kept in registers
 constexpr unsigned NEG = 0x80000000u;
 
 // A set of lanes' candidates. An active lane's key is
@@ -113,6 +117,19 @@ __device__ __forceinline__ Cand merge(Cand a, const Cand& b) {
   a.phisq += b.phisq;
   a.key = b.key < a.key ? b.key : a.key;
   return a;
+}
+
+// The merge of the candidates of lanes l, l ^ 1, .., l ^ (n - 1) (n a power
+// of 2, at most 32), the same bits on each: phi^2 by a butterfly, the least
+// key by two redux steps (its high word, then the low word among the lanes
+// that hold it; lanes outside the group give no key).
+__device__ __forceinline__ Cand warp_min(Cand c, int n) {
+  for (int off = 1; off < n; off <<= 1) c.phisq += __shfl_xor_sync(FULL, c.phisq, off);
+  const unsigned hi = __reduce_min_sync(FULL, (unsigned)(c.key >> 32));
+  const unsigned lo = __reduce_min_sync(
+      FULL, (unsigned)(c.key >> 32) == hi ? (unsigned)c.key : ~0u);
+  c.key = ((unsigned long long)hi << 32) | lo;
+  return c;
 }
 
 __device__ __forceinline__ Cand shfl_down(const Cand& c, int off) {
@@ -162,7 +179,7 @@ __device__ __forceinline__ void cluster_barrier() {
   else __syncthreads();
 }
 
-// Dynamic shared memory: slots (2 x n_ranks * width Cand), vd (qp doubles),
+// Dynamic shared memory: slots (2 x n_ranks * n_warps Cand), vd (qp doubles),
 // v (qp floats), nt (width columns of qp + 4 floats). qp is q rounded up to
 // 8; rows q.. of nt, v and vd are zero. blockDim.x = 32 * ceil(width / 8).
 // n_ranks is the cluster size (1 without a cluster); the blocks
@@ -176,8 +193,8 @@ car_smem_kernel(const float* __restrict__ mu_in,
                 int m, int q, int n_take, int width, int qp, int n_ranks) {
   extern __shared__ __align__(16) unsigned char car_smem[];
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int n_slot = n_ranks * width;                 // >= m
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nthr >> 5;
+  const int n_slot = n_ranks * n_warps;
   const int stride = qp + 4;                          // = 4 mod 8
   Cand* part = reinterpret_cast<Cand*>(car_smem);
   double* vd = reinterpret_cast<double*>(part + 2 * n_slot);
@@ -228,27 +245,27 @@ car_smem_kernel(const float* __restrict__ mu_in,
   const float mk = own ? mask_in[b * m + i] : 0.f;
   float el = 0.f;
   float* mycol = nt + col * stride;
-  // the slots of lanes >= m are never written
-  for (int k = m + tid; k < n_slot; k += nthr) part[k] = part[n_slot + k] = no_cand();
   // the slice is loaded, and (cluster) every block has started
   cluster_barrier<CLUSTER>();
 
   for (int t = 0; t < n_take; ++t) {
-    // 1. this step's candidate of each lane, stored into its slot in every
-    // block (by the column's first thread)
+    // 1. this step's candidates, merged over the warp's 8 lanes and stored
+    // into the warp's slot in every block
     float ph = 0.f;
-    Cand* slots = part + (t & 1) * n_slot;
+    Cand c = no_cand();
     if (own) {
       mu = mu * (1.f - el);        // strip fp32 deflation dust
       ph = mycol[t];
-      if (g == 0) {
-        const Cand c = lane_cand(mu, mk, el, ph, i);
-        if constexpr (CLUSTER) {
-          for (int k = 0; k < n_ranks; ++k)
-            cg::this_cluster().map_shared_rank(slots, k)[i] = c;
-        } else {
-          slots[i] = c;
-        }
+      if (g == 0) c = lane_cand(mu, mk, el, ph, i);
+    }
+    c = warp_min(c, 8);
+    Cand* slots = part + (t & 1) * n_slot;
+    if (lane == 0) {
+      if constexpr (CLUSTER) {
+        for (int k = 0; k < n_ranks; ++k)
+          cg::this_cluster().map_shared_rank(slots, k)[rank * n_warps + warp] = c;
+      } else {
+        slots[warp] = c;
       }
     }
     cluster_barrier<CLUSTER>();
@@ -257,32 +274,12 @@ car_smem_kernel(const float* __restrict__ mu_in,
     // v = 0 (an exact no-op)
     const int r0 = t & ~3;
 
-    // 2. warp 0 merges the m slots in the same order in every block,
+    // 2. warp 0 merges the slots in the same order in every block,
     // decides, gathers the Householder column and writes both
     if (warp == 0) {
-      // 8 slots in flight a lane, merged as a tree
-      Cand c = no_cand();
-      for (int k0 = lane; k0 < m; k0 += 8 * 32) {
-        Cand s[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          s[k] = k0 + 32 * k < m ? slots[k0 + 32 * k] : no_cand();
-#pragma unroll
-        for (int h = 1; h < 8; h <<= 1)
-#pragma unroll
-          for (int k = 0; k < 8; k += 2 * h) s[k] = merge(s[k], s[k + h]);
-        c = merge(c, s[0]);
-      }
-      // over the warp: phi^2 by a butterfly, the least key by two redux
-      // steps (its high word, then the low word among lanes that hold it)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        c.phisq += __shfl_xor_sync(FULL, c.phisq, off);
-      const unsigned hi = __reduce_min_sync(FULL, (unsigned)(c.key >> 32));
-      const unsigned lo = __reduce_min_sync(
-          FULL, (unsigned)(c.key >> 32) == hi ? (unsigned)c.key : ~0u);
-      c.key = ((unsigned long long)hi << 32) | lo;
-      Decision d = decide(c);
+      c = no_cand();
+      for (int k = lane; k < n_slot; k += 32) c = merge(c, slots[k]);
+      Decision d = decide(warp_min(c, 32));
       if (d.valid) {
         const int owner = CLUSTER ? (int)((d.idx + 0.5f) * inv_width) : 0;
         const int lc = d.idx - owner * width;
@@ -333,36 +330,52 @@ car_smem_kernel(const float* __restrict__ mu_in,
     }
     const bool live = own && el < 0.5f;
     // thread g takes rows r0 + 4 g + 16 j .. + 3 of its column: a 16-byte
-    // load of the column, of v and of vd (two) for four rows
-    double w = 0.0;
+    // load of the column, of v and of vd (two) for four rows. The first NX
+    // loads of the column stay in registers for the update.
+    float4 xs[NX];
+    double w0 = 0.0, w1 = 0.0, w2 = 0.0, w3 = 0.0;
+    const auto dot4 = [&](const float4& x, int r) {
+      const double2 va = *reinterpret_cast<const double2*>(vd + r);
+      const double2 vb = *reinterpret_cast<const double2*>(vd + r + 2);
+      w0 = fma(va.x, (double)x.x, w0);
+      w1 = fma(va.y, (double)x.y, w1);
+      w2 = fma(vb.x, (double)x.z, w2);
+      w3 = fma(vb.y, (double)x.w, w3);
+    };
     if (live) {
-      double w0 = 0.0, w1 = 0.0, w2 = 0.0, w3 = 0.0;
-#pragma unroll 4
-      for (int r = r0 + 4 * g; r < qp; r += 16) {
-        const float4 x = *reinterpret_cast<const float4*>(mycol + r);
-        const double2 va = *reinterpret_cast<const double2*>(vd + r);
-        const double2 vb = *reinterpret_cast<const double2*>(vd + r + 2);
-        w0 = fma(va.x, (double)x.x, w0);
-        w1 = fma(va.y, (double)x.y, w1);
-        w2 = fma(vb.x, (double)x.z, w2);
-        w3 = fma(vb.y, (double)x.w, w3);
+#pragma unroll
+      for (int k = 0; k < NX; ++k) {
+        const int r = r0 + 4 * g + 16 * k;
+        if (r < qp) {
+          xs[k] = *reinterpret_cast<const float4*>(mycol + r);
+          dot4(xs[k], r);
+        }
       }
-      w = (w0 + w1) + (w2 + w3);
+#pragma unroll 2
+      for (int r = r0 + 4 * g + 16 * NX; r < qp; r += 16)
+        dot4(*reinterpret_cast<const float4*>(mycol + r), r);
     }
+    double w = (w0 + w1) + (w2 + w3);
     w += __shfl_xor_sync(FULL, w, 8);
     w += __shfl_xor_sync(FULL, w, 16);
     if (live) {
       const float cw = (float)((double)d.coef * w);
-#pragma unroll 2
-      for (int r = r0 + 4 * g; r < qp; r += 16) {
-        float4 x = *reinterpret_cast<const float4*>(mycol + r);
+      const auto update4 = [&](float4 x, int r) {
         const float4 vv = *reinterpret_cast<const float4*>(v + r);
         x.x = fmaf(-cw, vv.x, x.x);
         x.y = fmaf(-cw, vv.y, x.y);
         x.z = fmaf(-cw, vv.z, x.z);
         x.w = fmaf(-cw, vv.w, x.w);
         *reinterpret_cast<float4*>(mycol + r) = x;
+      };
+#pragma unroll
+      for (int k = 0; k < NX; ++k) {
+        const int r = r0 + 4 * g + 16 * k;
+        if (r < qp) update4(xs[k], r);
       }
+#pragma unroll 2
+      for (int r = r0 + 4 * g + 16 * NX; r < qp; r += 16)
+        update4(*reinterpret_cast<const float4*>(mycol + r), r);
     }
     __syncwarp();                  // row t + 1 is read by the column's warp
   }
@@ -553,7 +566,7 @@ extern "C" int sober_car_eliminate(const float* mu, const float* big_n,
   const int width = (m + cluster - 1) / cluster;
   const int qp = (q + 7) / 8 * 8;
   const int threads = (width + 7) / 8 * 32;
-  const size_t smem = (size_t)2 * cluster * width * sizeof(Cand) +
+  const size_t smem = (size_t)2 * cluster * (threads / 32) * sizeof(Cand) +
                       (size_t)qp * (sizeof(double) + sizeof(float)) +
                       (size_t)width * (qp + 4) * sizeof(float);
   if (width > MAX_WIDTH || smem > (size_t)SMEM_LIMIT)

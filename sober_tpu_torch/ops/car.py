@@ -32,12 +32,13 @@ class CarPlan(NamedTuple):
 
 def _fit(m: int, q: int, cluster: int) -> CarPlan | None:
     """The shared-memory plan with `cluster` blocks, if they hold the basis:
-    each block's slots of the lanes' candidates (2 x cluster x width x
-    16 B), the Householder vector in fp64 and fp32 (12 qp B, qp = q rounded
-    up to 8) and its width columns of qp + 4 fp32 words."""
+    each block's slots of the warps' candidates (2 x cluster x warps x
+    16 B, a warp per 8 lanes), the Householder vector in fp64 and fp32
+    (12 qp B, qp = q rounded up to 8) and its width columns of qp + 4 fp32
+    words."""
     width = -(-m // cluster)
     qp = -(-q // 8) * 8
-    smem = 32 * cluster * width + 12 * qp + 4 * width * (qp + 4)
+    smem = 32 * cluster * -(-width // 8) + 12 * qp + 4 * width * (qp + 4)
     if width > MAX_WIDTH or smem > SMEM_LIMIT:
         return None
     return CarPlan("smem" if cluster == 1 else "cluster", cluster, smem)
@@ -52,7 +53,7 @@ def car_plan(m: int, q: int) -> CarPlan:
     ceil(m / 8) lanes with all q rows: on an H100 at m=400, q=200 it beat
     clusters of 2 and 4 (PERF.md). A basis that no such cluster holds stays
     in L2 (the first port's kernel). m=200, q=100 takes one block
-    (94,048 B); m=400, q=200 a cluster of 8 (56,000 B each); m=1000,
+    (88,448 B); m=400, q=200 a cluster of 8 (44,992 B each); m=1000,
     q=500 the L2 kernel."""
     if not 1 <= m <= MAX_M:
         raise ValueError(f"car_eliminate: m={m} outside [1, {MAX_M}]")
@@ -172,7 +173,7 @@ def car_eliminate(mu: torch.Tensor, big_n: torch.Tensor,
 
 def _launch(mu, big_n, row_mask, n_take: int, plan: CarPlan):
     """Launch `plan`'s variant. `car_eliminate` passes car_plan's choice;
-    another plan (a larger cluster) is only for timing the alternatives."""
+    another plan is only for timing the alternatives (chip_smoke.py)."""
     m, q = big_n.shape[-2:]
     batch = big_n.shape[0] if big_n.dim() == 3 else 1
     lead = tuple(big_n.shape[:-2])

@@ -186,18 +186,18 @@ def test_reference_horizon_bounds_exact_agreement():
 # in screening; m=400, q=200 at batch 200), the card tests' shapes, and the
 # edges of each variant
 CAR_PLANS = {
-    (200, 100): CarPlan("smem", 1, 94_048),
-    (400, 200): CarPlan("cluster", 8, 56_000),
+    (200, 100): CarPlan("smem", 1, 88_448),
+    (400, 200): CarPlan("cluster", 8, 44_992),
     (1000, 500): CarPlan("l2", 1, 2_000),
-    (64, 47): CarPlan("smem", 1, 15_936),
-    (390, 197): CarPlan("cluster", 8, 54_928),
+    (64, 47): CarPlan("smem", 1, 14_144),
+    (390, 197): CarPlan("cluster", 8, 44_176),
     (1, 0): CarPlan("smem", 1, 48),
-    (256, 208): CarPlan("smem", 1, 227_776),     # the largest q in one block
-    (256, 209): CarPlan("cluster", 8, 38_944),
-    (257, 10): CarPlan("cluster", 8, 11_280),    # m past one block's lanes
-    (800, 120): CarPlan("cluster", 8, 76_640),
-    (2048, 152): CarPlan("cluster", 8, 227_104),  # the largest q in 8 blocks
-    (2048, 153): CarPlan("l2", 1, 612),
+    (256, 216): CarPlan("smem", 1, 228_896),     # the largest q in one block
+    (256, 217): CarPlan("cluster", 8, 32_896),
+    (257, 10): CarPlan("cluster", 8, 4_112),     # m past one block's lanes
+    (800, 120): CarPlan("cluster", 8, 54_368),
+    (2048, 208): CarPlan("cluster", 8, 227_776),  # the largest q in 8 blocks
+    (2048, 209): CarPlan("l2", 1, 836),
     (2049, 1): CarPlan("l2", 1, 4),              # past 8 blocks' lanes
     (MAX_M, 10): CarPlan("l2", 1, 40),
 }
@@ -211,9 +211,9 @@ def test_car_plan_picks_variant_by_shape(m, q):
         width = -(-m // plan.cluster)
         qp = -(-q // 8) * 8
         assert width <= MAX_WIDTH and plan.smem_bytes <= SMEM_LIMIT
-        # candidate slots, the Householder vector (fp64 and fp32), the
-        # columns of qp + 4 words
-        assert plan.smem_bytes == (32 * plan.cluster * width + 12 * qp
+        # a warp's candidate slot per 8 lanes, the Householder vector (fp64
+        # and fp32), the columns of qp + 4 words
+        assert plan.smem_bytes == (32 * plan.cluster * -(-width // 8) + 12 * qp
                                    + 4 * width * (qp + 4))
         # a quarter warp's 16-byte loads (8 columns, one row group) fall in
         # 8 different groups of 4 banks
