@@ -18,14 +18,18 @@ The script
   3. holds the Caratheodory kernel to its reference at both configs'
      shapes, and times both;
   4. holds the Tanimoto Gram and its bit-pack kernel to their references
-     and to a float64 oracle at the dataset path's shapes, and times them;
+     and to a float64 oracle at the dataset path's shapes, times them (the
+     Gram with and without the packs, the plain version, and torch._int_mm
+     as a yardstick of the product), and checks the non-binary contract:
+     NaN rows, then check_fingerprints raises;
   5. checks the port on the card against the port on the CPU (plain
      PyTorch references) on a small continuous iteration and 6. on a small
      screening iteration;
   7. runs the full continuous iteration at 65k/200 and at 200k/100 (the
      configurations of bench.py), with the kernels' launch counts;
   8. fits the Tanimoto GP and runs the full screening iteration at
-     bench.py's configuration, with its stage split and launch counts;
+     bench.py's configuration, with its stage split, launch counts, pool
+     packs and host reads of the fingerprint flag;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -55,6 +59,10 @@ DATASET = (133_303, 2048, 0.025, 512, 2000, 500, 100)
 # predictive covariance makes 2 predict_mean Grams and 3 in
 # predictive_covariance); CAR runs ceil(log2(2000 / 200)) + 1 rounds
 DATASET_LAUNCHES = {"tanimoto_gram": 11, "car_eliminate": 5}
+# bit packs per next_batch besides the pool's (packed once per prior): the
+# observations at the pi sweep, and 2 per recombination Gram but 1 for
+# K(nys, nys), whose operands are one tensor
+DATASET_PACKS = 20
 # where the TPU kernels live that the CUDA kernels replace (the bit pack
 # computes the row sums |x| and |y| of the Pallas Tanimoto kernel)
 REPLACES = {"rbf_gram": "sober_tpu/ops/pallas_kernels.py:131",
@@ -468,8 +476,22 @@ def make_pool():
     return feats, rng.normal(size=n_total).astype(np.float32)
 
 
+def int_mm_ms(x, y) -> float:
+    """torch._int_mm on int8 0/1 copies of x (n, d) and y (m, d), padded
+    with zeros to its multiples of 8: the intersection counts alone, a
+    yardstick of the tensor cores' int8 rate that the port never calls."""
+    up = lambda v: -(-v // 8) * 8
+    pad = lambda t, r, c: torch.nn.functional.pad(
+        t, (0, c - t.shape[1], 0, r - t.shape[0])).to(torch.int8)
+    a = pad(x, max(x.shape[0], 17), up(x.shape[1]))
+    b = pad(y, up(y.shape[0]), up(x.shape[1]))
+    return cuda_ms(lambda: torch._int_mm(a, b.t()))
+
+
 def phase_tanimoto(summary: dict, pool: np.ndarray) -> None:
-    from sober_tpu_torch.ops.tanimoto_gram import (pack_bits, pack_bits_reference,
+    from sober_tpu_torch.ops.tanimoto_gram import (check_fingerprints, pack_bits,
+                                                   pack_bits_reference,
+                                                   tanimoto_gram_packed,
                                                    tanimoto_similarity,
                                                    tanimoto_similarity_reference)
 
@@ -489,6 +511,7 @@ def phase_tanimoto(summary: dict, pool: np.ndarray) -> None:
         want = tanimoto_similarity_reference(x, y)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        n_differ = int((got != want).sum())
         require(bool(torch.isfinite(got).all()) and err <= 1e-6,
                 f"tanimoto {label}: err {err}")
         rows = rng.choice(x.shape[0], min(256, x.shape[0]), replace=False)
@@ -504,37 +527,89 @@ def phase_tanimoto(summary: dict, pool: np.ndarray) -> None:
         want_words, _ = pack_bits_reference(x[:4096])
         require(torch.equal(words[:4096], want_words),
                 f"tanimoto {label}: packed words differ from the reference")
+        packed = (words, counts) + pack_bits(y)
+        require(torch.equal(tanimoto_gram_packed(*packed), got),
+                f"tanimoto {label}: the packed-operand Gram differs")
         pack_ms = cuda_ms(lambda: pack_bits(x))
         pack_plain_ms = cuda_ms(lambda: pack_bits_reference(x))
         ms = cuda_ms(lambda: tanimoto_similarity(x, y))
+        gram_ms = cuda_ms(lambda: tanimoto_gram_packed(*packed))
         plain_ms = cuda_ms(lambda: tanimoto_similarity_reference(x, y))
+        product_library_ms = int_mm_ms(x, y)
+        check_fingerprints(dev)                     # every input here is 0/1
         n, m, d = x.shape[0], y.shape[0], x.shape[1]
+        # the packed words and the counts read once, the Gram written once;
+        # the intersections as an int8 tensor-core product, 2 n m d ops
+        bound, by = bound_ms((n + m) * (d / 8 + 4) + 4.0 * n * m,
+                             2.0 * n * m * d, INT8_PEAK)
         emit(phase="tanimoto_gram", label=label, shape=[n, m, d],
-             max_abs_err=err, oracle_max_abs_err=oracle_err, tol=1e-6,
-             pack_ms=pack_ms, pack_plain_ms=pack_plain_ms, ms=ms,
-             plain_ms=plain_ms)
+             max_abs_err=err, entries_differing_bitwise=n_differ,
+             oracle_max_abs_err=oracle_err, tol=1e-6, pack_ms=pack_ms,
+             pack_plain_ms=pack_plain_ms, ms=ms, gram_ms=gram_ms,
+             plain_ms=plain_ms, product_library_ms=product_library_ms,
+             bound_ms=bound, bound_by=by)
         if n == len(pool):
-            # the float32 fingerprints read once and the Gram written once;
-            # the intersections as an int8 tensor-core product, 2 n m d ops
-            bound, by = bound_ms(4.0 * ((n + m) * d + n * m), 2.0 * n * m * d,
-                                 INT8_PEAK)
             summary["tanimoto_gram"] = {"max_abs_err": err, "ms": ms,
-                                        "plain_ms": plain_ms, "bound_ms": bound,
-                                        "bound_by": by, "shape": [n, m, d]}
+                                        "gram_ms": gram_ms, "plain_ms": plain_ms,
+                                        "product_library_ms": product_library_ms,
+                                        "bound_ms": bound, "bound_by": by,
+                                        "shape": [n, m, d]}
             # the pool read once; the words and the counts written once
             bound, by = bound_ms(4.0 * (n * d + n * d // 32 + n), float(n) * d,
                                  FP32_PEAK)
             summary["pack_bits"] = {"max_abs_err": pack_err, "ms": pack_ms,
                                     "plain_ms": pack_plain_ms, "bound_ms": bound,
                                     "bound_by": by, "shape": [n, d]}
-    bad = pool_t[:64].clone()
-    bad[3, 7] = 0.5
+    phase_non_binary(pool, pool_t)
+
+
+def phase_non_binary(pool, pool_t) -> None:
+    """A value other than 0 or 1 never gives a finite Gram entry: its row
+    (as x) or column (as y) is NaN, the rest exact, and no Gram reads the
+    flag; check_fingerprints then raises. A DatasetPrior whose pool holds a
+    0.5 raises at its first Gram."""
+    from sober_tpu_torch import DatasetPrior
+    from sober_tpu_torch.ops.tanimoto_gram import (check_fingerprints,
+                                                   tanimoto_similarity,
+                                                   tanimoto_similarity_reference)
+
+    dev = torch.device("cuda")
+    check_fingerprints(dev)
+    clean = pool_t[:64]
+    for value in (0.5, float("nan"), 2.0):
+        bad = clean.clone()
+        bad[3, 7] = value
+        reads = check_fingerprints.reads
+        for got, ref, line in ((tanimoto_similarity(bad, clean),
+                                tanimoto_similarity_reference(clean, clean), 0),
+                               (tanimoto_similarity(clean, bad),
+                                tanimoto_similarity_reference(clean, clean), 1)):
+            torch.cuda.synchronize()
+            marked = got[3] if line == 0 else got[:, 3]
+            keep = torch.arange(64, device=dev) != 3
+            rest = got[keep] if line == 0 else got[:, keep]
+            rest_ref = ref[keep] if line == 0 else ref[:, keep]
+            require(bool(torch.isnan(marked).all()) and torch.equal(rest, rest_ref),
+                    f"non-binary {value}: NaN in exactly its {'row' if line == 0 else 'column'}")
+        require(check_fingerprints.reads == reads, "a Gram read the flag")
+        try:
+            check_fingerprints(dev)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError(f"check failed: a {value} passed check_fingerprints")
+        check_fingerprints(dev)                      # reset by the raise
+    feats = pool[:2000].copy()
+    feats[10, 20] = 0.5
+    prior = DatasetPrior(feats, np.zeros(2000, np.float32), device=dev)
     try:
-        tanimoto_similarity(bad, pool_t[:8])
+        tanimoto_similarity(prior.features, clean)
     except ValueError:
         pass
     else:
-        raise RuntimeError("check failed: a non-binary fingerprint was accepted")
+        raise RuntimeError("check failed: a pool holding 0.5 passed its first Gram")
+    emit(phase="tanimoto_non_binary", values=[0.5, "nan", 2.0], nan_rows_and_columns=True,
+         flag_reads_in_grams=0, pool_raises_at_first_gram=True)
 
 
 def state_to(state, dev):
@@ -638,19 +713,21 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
     from sober_tpu_torch import DatasetPrior, Sober, fit_tanimoto_gp
     from sober_tpu_torch.ops.car import car_eliminate
     from sober_tpu_torch.ops.rbf_gram import rbf_gram
-    from sober_tpu_torch.ops.tanimoto_gram import pack_bits, tanimoto_similarity
+    from sober_tpu_torch.ops.tanimoto_gram import (POOLS, check_fingerprints,
+                                                   pack_bits, tanimoto_gram_packed)
     from sober_tpu_torch.utils.prng import KeyRing
 
     n_total, n_bits, _, n_obs, n_rec, n_nys, batch = DATASET
     dev = torch.device("cuda")
+    pool_packs0 = POOLS.packs
     prior = DatasetPrior(pool, targets, device=dev)
     x_obs, y_obs = prior.sample(KeyRing(0, device=dev).next(), n_obs)
     torch.cuda.synchronize()
-    tanimoto_similarity.launches = 0
+    tanimoto_gram_packed.launches = 0
     t0 = time.perf_counter()
     model = fit_tanimoto_gp(x_obs, y_obs)
     torch.cuda.synchronize()
-    fit_s, fit_launches = time.perf_counter() - t0, tanimoto_similarity.launches
+    fit_s, fit_launches = time.perf_counter() - t0, tanimoto_gram_packed.launches
     require(fit_launches > 0, "dataset fit: the Tanimoto kernel never launched")
     emit(phase="dataset_fit", n_obs=n_obs, n_bits=n_bits, seconds=fit_s,
          tanimoto_launches=fit_launches,
@@ -662,9 +739,10 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for fn in (tanimoto_similarity, pack_bits, car_eliminate, rbf_gram):
+    for fn in (tanimoto_gram_packed, pack_bits, car_eliminate, rbf_gram):
         fn.launches = 0
     variants0 = dict(car_eliminate.variant_launches)
+    reads0, loop_packs0 = check_fingerprints.reads, POOLS.packs
     times = []
     for it in range(1 + ITERS):                       # one warm-up
         torch.cuda.synchronize()
@@ -673,8 +751,19 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
         torch.cuda.synchronize()
         if it:
             times.append(time.perf_counter() - t0)
-    n_tan, n_car = tanimoto_similarity.launches, car_eliminate.launches
+    n_tan, n_car = tanimoto_gram_packed.launches, car_eliminate.launches
     n_pack, n_rbf = pack_bits.launches, rbf_gram.launches
+    # the pool is packed (and its flag read) at the first next_batch; the
+    # other host reads are check_fingerprints, once per next_batch
+    loop_pool_packs = POOLS.packs - loop_packs0
+    reads = check_fingerprints.reads - reads0
+    require(loop_pool_packs == 1, f"dataset: the pool was packed {loop_pool_packs} "
+            "times in the timed loop, want once")
+    require(reads == 1 + ITERS + loop_pool_packs,
+            f"dataset: {reads} flag reads in {1 + ITERS} next_batch calls")
+    require(n_pack - loop_pool_packs == DATASET_PACKS * (1 + ITERS),
+            f"dataset: {n_pack - loop_pool_packs} packs besides the pool's, want "
+            f"{DATASET_PACKS} per next_batch")
     variants = car_variant_check(batch, variants0, "dataset")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name, n in (("tanimoto_gram", n_tan), ("car_eliminate", n_car)):
@@ -693,17 +782,22 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
     stages, moms = {}, []
     for _ in range(ITERS):
         moms.append(staged_screening(sober, n_rec, n_nys, batch, stages)[2])
+    profiled = car_profile(lambda: sober.next_batch(n_rec, n_nys, batch))
+    phase_pool_packs = POOLS.packs - pool_packs0
+    require(phase_pool_packs == 1,
+            f"dataset: the pool was packed {phase_pool_packs} times in the phase")
     emit(phase="dataset_iteration", n_total=n_total, n_bits=n_bits, n_obs=n_obs,
          n_rec=n_rec, n_nys=n_nys, batch=batch,
          iteration_s_median=statistics.median(times), iteration_s=times,
          stage_ms_median={k: statistics.median(v) for k, v in stages.items()},
          stage_ms=stages,
          launches_per_iteration={"tanimoto_gram": n_tan / (1 + ITERS),
-                                 "pack_bits": n_pack / (1 + ITERS),
+                                 "pack_bits": (n_pack - loop_pool_packs) / (1 + ITERS),
                                  "car_eliminate": n_car / (1 + ITERS)},
-         car_variant_launches=variants,
-         profile_one_iteration=car_profile(
-             lambda: sober.next_batch(n_rec, n_nys, batch)),
+         pool_packs_in_phase=phase_pool_packs,
+         flag_reads_per_iteration=(reads - loop_pool_packs) / (1 + ITERS),
+         flag_reads_in_grams=0, car_variant_launches=variants,
+         profile_one_iteration=profiled,
          moment_err_max=max(moms), w_sum=float(w_b.sum()),
          n_pos=int(sober.last_npos), peak_mem_gib=peak_gib)
 
@@ -735,6 +829,8 @@ def main() -> None:
                         "bound_by": s["bound_by"],
                         # no single PyTorch call computes any of the four
                         "library_ms": None, "shape": s["shape"],
+                        **{k: s[k] for k in ("gram_ms", "product_library_ms")
+                           if k in s},
                         **({"step_floor_ms": s["step_floor_ms"]}
                            if "step_floor_ms" in s else {})})
     print(json.dumps({"kernels": kernels}), flush=True)

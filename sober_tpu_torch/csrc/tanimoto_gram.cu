@@ -5,42 +5,65 @@
 // (_tanimoto_kernel), which runs the intersection counts as one fp32 MXU
 // product per 256 x 256 tile with the denominator fused in.
 //
-// What bounds it on this card: the bits. Stored as fp32 0/1 values a
-// 2048-bit fingerprint is 8 KB, and an fp32 product spends 2 flops on each
-// bit pair; packed 32 to a word it is 256 B, and one AND plus one popcount
-// covers 32 bit pairs. The dataset pi sweep (133,303 x 512 over 2048 bits)
-// is ~280 GFLOP as an fp32 GEMM but ~4.4 G word pairs here, so the Gram is
-// bound by the SM's popcount rate (16 a clock per SM), not by memory.
+// What bounds it on this card. At the dataset pi sweep (133,303 x 512 over
+// 2048 bits, the pool packed beforehand) the intersections are
+// 2 n m d = 2.8e11 operations of a 0/1 product: 0.141 ms at the 1,979
+// TOP/s dense int8 tensor-core peak, against 0.09 ms to write the 273 MB
+// fp32 Gram and 0.01 ms to read the 34 MB of packed words. So the
+// operations bound it, and only the tensor cores reach that rate: the
+// popcount units (16 a clock per SM) need ~1 ms for the same 4.4 G word
+// pairs. At the recombination strips (500 x 2,000) a call is ~64 blocks and
+// launch latency bounds it.
 //
 // What the design does about it, in two kernels:
 //  * pack: one warp per row. Lane l reads element 32w + l of word w, so a
 //    warp's read of 32 consecutive floats is one coalesced 128-byte load,
 //    and __ballot_sync gives the word (bit l = element 32w + l; elements
 //    past d are zero bits). Lane 0 writes the word and the row's popcount.
-//    A value other than 0 or 1 (NaN included) sets a flag that the wrapper
-//    reads and raises on, since popcounts are only right for 0/1 inputs.
-//  * gram: a 2-D tiled SIMT kernel. A block of 16 x 16 threads owns a
-//    64 x 64 output tile, 4 x 4 outputs a thread. The packed words of its
-//    64 x rows and 64 y rows are staged in shared memory, CHUNK words at a
-//    time (one chunk at d = 2048), transposed to [word][row] with one word
-//    of padding so that both the staging stores and the inner-loop loads
-//    are free of bank conflicts. The intersection is an exact int32 sum of
-//    __popc(a & b); the epilogue divides in fp32, so an all-zero row pair
-//    (the zero padding of pad_observations) gives 0 / 1e-20 = 0.
+//    A row holding a value other than 0 or 1 (NaN included) gets the count
+//    -1 instead, and the device flag `bad` is raised; nothing waits on it.
+//  * gram: an exact integer product on the tensor cores. A block of 4 warps
+//    owns a 128 x 128 output tile, 64 x 64 a warp. The packed words of its
+//    x and y rows stream through a 4-stage cp.async ring in shared memory,
+//    16 words (512 bits) a row a stage, so the whole k extent of d = 2048
+//    is in flight at once. Words are stored in 16-byte chunks whose order
+//    within a row is XOR-swizzled by the row, so that the fragment loads
+//    (8 rows x 4 words a warp) hit 32 distinct banks. Each 32-bit word is
+//    one k step of mma.sync m16n8k32 s8: lane (g, t) takes word t of a
+//    4-word chunk and, for step s, spreads bits s + 8j and s + 4 + 8j into
+//    0/1 bytes with one shift and one mask each. x and y use the same bit
+//    order, so the int32 sums are the exact intersections (at most d). The
+//    epilogue stages the counts through shared memory (padded rows, no bank
+//    conflicts), then each warp writes whole 512-byte output rows with
+//    16-byte stores, dividing in fp32 exactly as the reference does, so an
+//    all-zero row pair gives 0 / 1e-20 = 0. A row or column whose count is
+//    -1 becomes NaN. Ragged edges: rows past n or m are staged as zeros
+//    and never stored; words past ceil(d/32) are zero-filled; a word count
+//    that is not a multiple of 4 is copied 4 bytes at a time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int PACK_WARPS = 8;   // rows per pack block
-constexpr int TX = 16;          // threads along y (output columns)
-constexpr int TY = 16;          // threads along x (output rows)
-constexpr int BM = 64;          // x rows per block
-constexpr int BN = 64;          // y rows per block
-constexpr int RM = BM / TY;     // output rows per thread
-constexpr int RN = BN / TX;     // output columns per thread
-constexpr int CHUNK = 64;       // words staged per pass: 2 * 64 * 65 * 4 B = 33 KB
+constexpr int PACK_WARPS = 8;           // rows per pack block
+constexpr int BM = 128;                 // x rows per block
+constexpr int BN = 128;                 // y rows per block
+constexpr int WARPS_M = 2, WARPS_N = 2;
+constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int WM = BM / WARPS_M;        // 64 output rows a warp
+constexpr int WN = BN / WARPS_N;        // 64 output columns a warp
+constexpr int MT = WM / 16;             // m16 tiles a warp
+constexpr int NT = WN / 8;              // n8 tiles a warp
+constexpr int KC = 16;                  // words a row a stage (4 chunks)
+constexpr int STAGES = 4;
+constexpr int STAGE_WORDS = (BM + BN) * KC;
+constexpr int OUT_LD = BN + 8;          // output staging row stride (int32)
+constexpr int RING_BYTES = STAGES * STAGE_WORDS * 4;
+constexpr int OUT_BYTES = BM * OUT_LD * 4;
+constexpr int MAIN_BYTES = RING_BYTES > OUT_BYTES ? RING_BYTES : OUT_BYTES;
+constexpr int SMEM_BYTES = MAIN_BYTES + (BM + BN) * 4;   // + the tile's counts
+constexpr uint32_t LOW_BITS = 0x01010101u;
 
 __global__ void __launch_bounds__(32 * PACK_WARPS)
 pack_bits_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
@@ -62,77 +85,272 @@ pack_bits_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
     total += __popc(word);
   }
   if (lane == 0) {
-    counts[row] = total;
+    counts[row] = flagged ? -1 : total;
     if (flagged) atomicOr(bad, 1);
   }
 }
 
-__global__ void __launch_bounds__(TX * TY)
-tanimoto_gram_kernel(const uint32_t* __restrict__ xw,
-                     const uint32_t* __restrict__ yw,
-                     const int* __restrict__ nx, const int* __restrict__ ny,
-                     float* __restrict__ out, int n, int m, int n_words) {
-  __shared__ uint32_t xs[CHUNK][BM + 1];
-  __shared__ uint32_t ys[CHUNK][BN + 1];
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  const int i0 = blockIdx.y * BM;
-  const int j0 = blockIdx.x * BN;
+// word w (0..3) of chunk c (0..3) of staged row r, within one stage
+__device__ __forceinline__ int swz(int r, int c, int w) {
+  return r * KC + ((c ^ ((r >> 1) & 3)) << 2) + w;
+}
 
-  int acc[RM][RN];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) acc[r][c] = 0;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes));
+}
 
-  for (int k0 = 0; k0 < n_words; k0 += CHUNK) {
-    const int kw = min(CHUNK, n_words - k0);
-    // consecutive threads read consecutive words of a row; rows past the
-    // edge are staged as zeros and never stored
-    for (int e = tid; e < BM * kw; e += TX * TY) {
-      const int r = e / kw, k = e - r * kw, i = i0 + r;
-      xs[k][r] = i < n ? xw[(size_t)i * n_words + k0 + k] : 0u;
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes));
+}
+
+// Stage `st` (words st*KC .. st*KC + KC - 1 of every row) into `buf`; rows
+// past the edge and words past n_words are zero-filled.
+__device__ __forceinline__ void load_stage(
+    uint32_t* buf, const uint32_t* __restrict__ xw,
+    const uint32_t* __restrict__ yw, int i0, int j0, int n, int m,
+    int n_words, int st, bool vec) {
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(buf));
+  const int k0 = st * KC;
+  if (vec) {                          // aligned rows: 16-byte chunks
+    for (int e = threadIdx.x; e < (BM + BN) * 4; e += THREADS) {
+      const int r = e >> 2, c = e & 3, k = k0 + 4 * c;
+      const bool is_x = r < BM;
+      const int row = is_x ? i0 + r : j0 + r - BM;
+      const bool ok = (is_x ? row < n : row < m) && k < n_words;
+      const uint32_t* src = ok ? (is_x ? xw : yw) + (size_t)row * n_words + k : xw;
+      cp_async16(base + 4u * swz(r, c, 0), src, ok ? 16 : 0);
     }
-    for (int e = tid; e < BN * kw; e += TX * TY) {
-      const int r = e / kw, k = e - r * kw, j = j0 + r;
-      ys[k][r] = j < m ? yw[(size_t)j * n_words + k0 + k] : 0u;
+  } else {                            // ragged word count: 4 bytes at a time
+    for (int e = threadIdx.x; e < (BM + BN) * KC; e += THREADS) {
+      const int r = e / KC, kk = e % KC, k = k0 + kk;
+      const bool is_x = r < BM;
+      const int row = is_x ? i0 + r : j0 + r - BM;
+      const bool ok = (is_x ? row < n : row < m) && k < n_words;
+      const uint32_t* src = ok ? (is_x ? xw : yw) + (size_t)row * n_words + k : xw;
+      cp_async4(base + 4u * swz(r, kk >> 2, kk & 3), src, ok ? 4 : 0);
     }
-    __syncthreads();
-    for (int k = 0; k < kw; ++k) {
-      uint32_t a[RM], b[RN];
-#pragma unroll
-      for (int r = 0; r < RM; ++r) a[r] = xs[k][threadIdx.y + r * TY];
-#pragma unroll
-      for (int c = 0; c < RN; ++c) b[c] = ys[k][threadIdx.x + c * TX];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) acc[r][c] += __popc(a[r] & b[c]);
-    }
-    __syncthreads();
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
+__device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_b1(int* c, uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One stage's products into acc. s8: each word is a k step of 32 bits,
+// unpacked to bytes; b1: two chunks (256 bits) are one k step, as they are.
+template <bool B1>
+__device__ __forceinline__ void compute_stage(const uint32_t* sb,
+                                              int (&acc)[MT][NT][4], int wm0,
+                                              int wn0, int g, int t) {
+  if constexpr (B1) {
 #pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int i = i0 + threadIdx.y + r * TY;
-    if (i >= n) continue;
-    const float cx = (float)nx[i];
+    for (int h = 0; h < KC / 8; ++h) {
+      uint32_t bw[NT][2];
 #pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      const int j = j0 + threadIdx.x + c * TX;
-      if (j < m) {
-        const float inter = (float)acc[r][c];
-        out[(size_t)i * m + j] = inter / fmaxf(cx + (float)ny[j] - inter, 1e-20f);
+      for (int nt = 0; nt < NT; ++nt) {
+        const int r = BM + wn0 + nt * 8 + g;
+        bw[nt][0] = sb[swz(r, 2 * h, t)];
+        bw[nt][1] = sb[swz(r, 2 * h + 1, t)];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = wm0 + mt * 16 + g;
+        const uint32_t a0 = sb[swz(r, 2 * h, t)], a1 = sb[swz(r + 8, 2 * h, t)];
+        const uint32_t a2 = sb[swz(r, 2 * h + 1, t)];
+        const uint32_t a3 = sb[swz(r + 8, 2 * h + 1, t)];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_b1(acc[mt][nt], a0, a1, a2, a3, bw[nt][0], bw[nt][1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < KC / 4; ++c) {
+      uint32_t aw[MT][2], bw[NT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = wm0 + mt * 16 + g;
+        aw[mt][0] = sb[swz(r, c, t)];
+        aw[mt][1] = sb[swz(r + 8, c, t)];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) bw[nt] = sb[swz(BM + wn0 + nt * 8 + g, c, t)];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t bf[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          bf[nt][0] = (bw[nt] >> s) & LOW_BITS;
+          bf[nt][1] = (bw[nt] >> (s + 4)) & LOW_BITS;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t a0 = (aw[mt][0] >> s) & LOW_BITS;
+          const uint32_t a1 = (aw[mt][1] >> s) & LOW_BITS;
+          const uint32_t a2 = (aw[mt][0] >> (s + 4)) & LOW_BITS;
+          const uint32_t a3 = (aw[mt][1] >> (s + 4)) & LOW_BITS;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_s8(acc[mt][nt], a0, a1, a2, a3, bf[nt][0], bf[nt][1]);
+        }
       }
     }
   }
 }
 
+// The reference's fp32 division, bit for bit. An empty intersection gives
+// +0 (the denominator is at least 1e-20) without dividing: IEEE division
+// takes its slow path on a zero numerator, and most pairs share no bit.
+__device__ __forceinline__ float tanimoto(int inter, int cx, int cy) {
+  if (cx < 0 || cy < 0) return __int_as_float(0x7fffffff);   // NaN
+  if (inter == 0) return 0.f;
+  const float fi = (float)inter;
+  return fi / fmaxf((float)cx + (float)cy - fi, 1e-20f);
+}
+
+template <bool B1, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+tanimoto_gram_kernel(const uint32_t* __restrict__ xw,
+                     const uint32_t* __restrict__ yw,
+                     const int* __restrict__ nx, const int* __restrict__ ny,
+                     float* __restrict__ out, int n, int m, int n_words,
+                     int m_tiles, int mode) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  int* sx = reinterpret_cast<int*>(smem) + MAIN_BYTES / 4;   // counts of the
+  int* sy = sx + BM;                                         // tile's rows
+  const int i0 = (blockIdx.x / m_tiles) * BM;
+  const int j0 = (blockIdx.x % m_tiles) * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
+  const bool vec = (n_words & 3) == 0 && !(mode & 8) &&
+                   ((reinterpret_cast<size_t>(xw) | reinterpret_cast<size_t>(yw)) & 15) == 0;
+  const int n_stages = (n_words + KC - 1) / KC;
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+
+  // the ring: STAGES - 1 stages ahead; a group is committed for every
+  // stage index, loaded or not, so that wait_group counts stay uniform
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_stages)
+      load_stage(smem + st * STAGE_WORDS, xw, yw, i0, j0, n, m, n_words, st, vec);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int r = threadIdx.x; r < BM + BN; r += THREADS)
+    sx[r] = r < BM ? (i0 + r < n ? nx[i0 + r] : 0) : (j0 + r - BM < m ? ny[j0 + r - BM] : 0);
+  for (int st = 0; st < n_stages; ++st) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2));
+    __syncthreads();   // stage st landed for all; stage st - 1 is consumed
+    const int ahead = st + STAGES - 1;
+    if (ahead < n_stages)
+      load_stage(smem + (ahead % STAGES) * STAGE_WORDS, xw, yw, i0, j0, n, m,
+                 n_words, ahead, vec);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    if (!(mode & 1))
+      compute_stage<B1>(smem + (st % STAGES) * STAGE_WORDS, acc, wm0, wn0, g, t);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();     // every warp is done with the ring
+  if (mode & 4) {
+    if (acc[0][0][0] == 0x7fffffff) out[0] = 1.f;
+    return;
+  }
+
+  // the similarities through shared memory: lane (g, t) holds rows g and
+  // g + 8, columns 2t and 2t + 1 of each 16 x 8 tile
+  float* so = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = wm0 + mt * 16 + g;
+    const int cx0 = sx[r], cx1 = sx[r + 8];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = wn0 + nt * 8 + 2 * t;
+      const int cy0 = sy[c], cy1 = sy[c + 1];
+      *reinterpret_cast<float2*>(so + r * OUT_LD + c) = make_float2(
+          tanimoto(acc[mt][nt][0], cx0, cy0), tanimoto(acc[mt][nt][1], cx0, cy1));
+      *reinterpret_cast<float2*>(so + (r + 8) * OUT_LD + c) = make_float2(
+          tanimoto(acc[mt][nt][2], cx1, cy0), tanimoto(acc[mt][nt][3], cx1, cy1));
+    }
+  }
+  __syncthreads();
+  if (mode & 2) return;
+
+  // a warp writes one 128-column row (512 B) a pass, 16 B a lane, with
+  // streaming stores that leave the packed words in L2
+  const bool vec_out = (m & 3) == 0 && (reinterpret_cast<size_t>(out) & 15) == 0;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < BM * (BN / 4); e += THREADS) {
+    const int r = e / (BN / 4), c = 4 * (e % (BN / 4));
+    const int i = i0 + r, j = j0 + c;
+    if (i >= n || j >= m) continue;
+    const float4 v = *reinterpret_cast<const float4*>(so + r * OUT_LD + c);
+    float* o = out + (size_t)i * m + j;
+    if (vec_out && j + 4 <= m) {
+      __stcs(reinterpret_cast<float4*>(o), v);
+    } else {
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+      for (int q = 0; q < 4 && j + q < m; ++q) o[q] = vs[q];
+    }
+  }
+}
+
+template <bool B1, int MIN_BLOCKS>
+int launch_gram(const uint32_t* xw, const uint32_t* yw, const int* nx,
+                const int* ny, float* out, int n, int m, int n_words,
+                void* stream, int mode = 0) {
+  if (n <= 0 || m <= 0 || n_words <= 0) return (int)cudaErrorInvalidValue;
+  const long long m_tiles = (m + BN - 1) / BN;
+  const long long tiles = ((n + BM - 1) / BM) * m_tiles;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = tanimoto_gram_kernel<B1, MIN_BLOCKS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)tiles, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      xw, yw, nx, ny, out, n, m, n_words, (int)m_tiles, mode);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (n, d) contiguous float32 holding 0/1; words (n, n_words) uint32 with
-// n_words = ceil(d / 32); counts (n,) int32; bad (1,) int32, which must be 0
-// on entry and is set to 1 if x holds a value other than 0 or 1. Launches
-// on `stream` and returns cudaGetLastError().
+// n_words = ceil(d / 32); counts (n,) int32, -1 for a row holding another
+// value; bad (1,) int32, or'ed with 1 for such a row. Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int sober_pack_bits(const float* x, uint32_t* words, int* counts,
                                int* bad, int n, int d, void* stream) {
   const int n_words = (d + 31) / 32;
@@ -144,16 +362,32 @@ extern "C" int sober_pack_bits(const float* x, uint32_t* words, int* counts,
 }
 
 // xw (n, n_words) and yw (m, n_words) packed words, nx (n,) and ny (m,)
-// their popcounts, out (n, m) float32: contiguous device buffers. Launches
-// on `stream` and returns cudaGetLastError().
+// their counts (-1: NaN in that row or column), out (n, m) float32:
+// contiguous device buffers. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int sober_tanimoto_gram(const uint32_t* xw, const uint32_t* yw,
                                    const int* nx, const int* ny, float* out,
                                    int n, int m, int n_words, void* stream) {
-  if (n <= 0 || m <= 0 || n_words <= 0 || (n + BM - 1) / BM > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
-  const dim3 block(TX, TY);
-  tanimoto_gram_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      xw, yw, nx, ny, out, n, m, n_words);
-  return (int)cudaGetLastError();
+  return launch_gram<false, 2>(xw, yw, nx, ny, out, n, m, n_words, stream);
+}
+
+// The same Gram with the product as mma.sync m16n8k256 b1 (and.popc) on the
+// packed words as they are.
+extern "C" int sober_tanimoto_gram_b1(const uint32_t* xw, const uint32_t* yw,
+                                      const int* nx, const int* ny, float* out,
+                                      int n, int m, int n_words, void* stream) {
+  return launch_gram<true, 2>(xw, yw, nx, ny, out, n, m, n_words, stream);
+}
+
+// Timing probes: variant 0 s8, 1 b1, 2 b1 at 3 blocks an SM; mode bit 0
+// skips the product, bit 1 the global stores.
+extern "C" int sober_tanimoto_gram_probe(const uint32_t* xw, const uint32_t* yw,
+                                         const int* nx, const int* ny, float* out,
+                                         int n, int m, int n_words, void* stream,
+                                         int variant, int mode) {
+  if (variant == 0)
+    return launch_gram<false, 2>(xw, yw, nx, ny, out, n, m, n_words, stream, mode);
+  if (variant == 1)
+    return launch_gram<true, 2>(xw, yw, nx, ny, out, n, m, n_words, stream, mode);
+  return launch_gram<true, 3>(xw, yw, nx, ny, out, n, m, n_words, stream, mode);
 }

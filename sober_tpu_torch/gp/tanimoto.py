@@ -1,12 +1,14 @@
 """Tanimoto-kernel GP for molecular fingerprints (port of
 sober_tpu/gp/tanimoto.py): the exact GP with the Tanimoto kernel plugged
-in. On the card its Grams run through the popcount kernel of
-`ops/tanimoto_gram.py`."""
+in. On the card its Grams run through the tensor-core kernel of
+`ops/tanimoto_gram.py`, and the fit checks its fingerprints once, at its
+end."""
 from __future__ import annotations
 
 import torch
 
 from ..ops.kernels import tanimoto_gram
+from ..ops.tanimoto_gram import check_fingerprints
 from .exact import GPConfig, GPState, fit_gp_padded
 
 
@@ -23,8 +25,11 @@ def fit_tanimoto_gp(x: torch.Tensor, y: torch.Tensor,
                     bucket: int = 128) -> GPState:
     """TanimotoGP (SOBER/_drug_modelling.py:103-113): ScaleKernel(Tanimoto)
     exact GP with standardized targets and no hyperpriors, fitted on a
-    bucket-padded observation buffer."""
+    bucket-padded observation buffer. Raises ValueError if x holds a value
+    other than 0 or 1 (`check_fingerprints`)."""
     cfg = GPConfig(kernel_name="tanimoto", noise_lo=noise_lo,
                    noise_hi=noise_hi, train_lik=True, standardize_y=True,
                    use_priors=False, fit_iters=fit_iters)
-    return fit_gp_padded(x, y, cfg, optimiser=optimiser, bucket=bucket)
+    state = fit_gp_padded(x, y, cfg, optimiser=optimiser, bucket=bucket)
+    check_fingerprints(state.x.device)
+    return state

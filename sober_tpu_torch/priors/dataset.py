@@ -5,13 +5,16 @@ The feature matrix stays whole and fixed on the device; a boolean mask on
 the same device marks the rows not yet queried. Candidate math runs over
 the full matrix with unavailable rows weighted zero, as in the JAX package.
 Only the count of available rows (`n_available`, read by `pdf`) and the
-uniform draws wait for the device.
+uniform draws wait for the device. On CUDA the features are registered as a
+pool of `ops/tanimoto_gram.py`: a Tanimoto Gram packs them into bits once,
+at the first Gram that takes them, and again only after a write to them.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config import resolve_device
+from ..ops.tanimoto_gram import register_pool
 from .base import BasePrior
 
 
@@ -29,6 +32,8 @@ class DatasetPrior(BasePrior):
         self.n_total, self.n_dims = self.features.shape
         self.available = torch.ones(self.n_total, dtype=torch.bool,
                                     device=self.device)
+        if self.device.type == "cuda":
+            register_pool(self.features)
 
     @property
     def n_available(self) -> int:

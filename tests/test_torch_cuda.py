@@ -12,7 +12,10 @@ from sober_tpu_torch.core.rchq import null_basis
 from sober_tpu_torch.ops.car import (MAX_M, car_eliminate, car_eliminate_reference,
                                      car_plan, reference_horizon)
 from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
-from sober_tpu_torch.ops.tanimoto_gram import (pack_bits, pack_bits_reference,
+from sober_tpu_torch import DatasetPrior, Sober, fit_tanimoto_gp
+from sober_tpu_torch.ops.tanimoto_gram import (POOLS, check_fingerprints,
+                                               pack_bits, pack_bits_reference,
+                                               tanimoto_gram_packed,
                                                tanimoto_similarity,
                                                tanimoto_similarity_reference)
 
@@ -135,20 +138,23 @@ def _bits(rng, n, d, zero_rows=()):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,d", [(4096, 512, 2048), (500, 2000, 2048),
-                                   (1000, 777, 300), (1, 1, 1), (65, 130, 4100)])
+                                   (1000, 777, 300), (1, 1, 1), (65, 130, 4100),
+                                   (133, 64, 2048), (17, 9, 31)])
 def test_tanimoto_kernel_matches_reference_on_card(cuda, n, m, d):
     """Exact integer intersections and the same fp32 division: the kernel
-    equals the reference to 1e-6 (in practice bit for bit), all-zero rows
-    included, and matches a float64 oracle to 1e-6."""
+    equals the reference bit for bit, all-zero rows included, and matches a
+    float64 oracle to 1e-6. The shapes cross the 128 x 128 tile's edges,
+    word counts that are not a multiple of 4 and d past one 2048-bit
+    ring."""
     rng = np.random.default_rng(n + d)
     x = _bits(rng, n, d, zero_rows=(0,) if n > 1 else ())
     y = _bits(rng, m, d, zero_rows=(m - 1,) if m > 1 else ())
     xt, yt = (torch.as_tensor(a, device=cuda) for a in (x, y))
-    before = tanimoto_similarity.launches
+    before = tanimoto_gram_packed.launches
     got = tanimoto_similarity(xt, yt)
     torch.cuda.synchronize()
-    assert tanimoto_similarity.launches == before + 1
-    assert float((got - tanimoto_similarity_reference(xt, yt)).abs().max()) <= 1e-6
+    assert tanimoto_gram_packed.launches == before + 1
+    assert torch.equal(got, tanimoto_similarity_reference(xt, yt))
     xy = x.astype(np.float64) @ y.T.astype(np.float64)
     oracle = xy / np.maximum(x.sum(1)[:, None] + y.sum(1)[None, :] - xy, 1e-20)
     assert np.abs(got.cpu().numpy() - oracle).max() <= 1e-6
@@ -168,17 +174,54 @@ def test_pack_kernel_matches_reference_on_card(cuda, d):
 
 @pytest.mark.cuda
 def test_tanimoto_kernel_rejects_what_it_cannot_run(cuda):
-    x = torch.zeros((4, 64), device=cuda)
-    x[1, 3] = 0.5
-    with pytest.raises(ValueError, match="only 0 and 1"):
-        tanimoto_similarity(x, x)
-    x[1, 3] = float("nan")
-    with pytest.raises(ValueError, match="only 0 and 1"):
-        pack_bits(x)
-    x[1, 3] = 1.0
+    """A value other than 0 or 1 (NaN included) makes its row NaN and the
+    rest exact, with no host read; check_fingerprints then raises once and
+    resets. Wrong types, grads and layouts raise at the call."""
+    check_fingerprints(cuda)
+    x = torch.as_tensor(_bits(np.random.default_rng(1), 40, 64), device=cuda)
+    want = tanimoto_similarity_reference(x, x)
+    for bad in (0.5, float("nan")):
+        xb = x.clone()
+        xb[1, 3] = bad
+        got = tanimoto_similarity(xb, x)
+        assert bool(torch.isnan(got[1]).all())
+        keep = torch.arange(40, device=cuda) != 1
+        assert torch.equal(got[keep], want[keep])
+        assert bool(torch.isnan(tanimoto_similarity(x, xb)[:, 1]).all())
+        assert int(pack_bits(xb)[1][1]) == -1
+        with pytest.raises(ValueError, match="only 0 and 1"):
+            check_fingerprints(cuda)
+        check_fingerprints(cuda)
     with pytest.raises(TypeError):
         tanimoto_similarity(x.double(), x.double())
     with pytest.raises(ValueError, match="requires grad"):
         tanimoto_similarity(x.clone().requires_grad_(True), x)
     with pytest.raises(ValueError, match="contiguous"):
-        tanimoto_similarity(torch.zeros((64, 4), device=cuda).T, x)
+        tanimoto_similarity(torch.zeros((64, 40), device=cuda).T, x)
+
+
+@pytest.mark.cuda
+def test_dataset_pool_is_packed_once(cuda):
+    """A DatasetPrior's features are packed at the first Gram that takes
+    them and reused across next_batch calls; a write to them makes the
+    next Gram repack. A pool holding a 0.5 raises at its first Gram."""
+    rng = np.random.default_rng(3)
+    feats = _bits(rng, 3000, 256)
+    targets = rng.normal(size=3000).astype(np.float32)
+    prior = DatasetPrior(feats, targets, device=cuda)
+    x_obs, y_obs = prior.sample(torch.Generator(device=cuda).manual_seed(0), 64)
+    sober = Sober(prior, fit_tanimoto_gp(x_obs, y_obs),
+                  kernel_type="weighted_predictive_covariance")
+    packs, reads = POOLS.packs, check_fingerprints.reads
+    for _ in range(2):
+        sober.next_batch(300, 40, 8)
+    assert POOLS.packs == packs + 1
+    # one read at the pool's pack, one at the end of each next_batch
+    assert check_fingerprints.reads == reads + 3
+    prior.features.add_(0.0)
+    sober.next_batch(300, 40, 8)
+    assert POOLS.packs == packs + 2
+    feats[7, 9] = 0.5
+    bad = DatasetPrior(feats, targets, device=cuda)
+    with pytest.raises(ValueError, match="only 0 and 1"):
+        tanimoto_similarity(bad.features, x_obs)

@@ -5,6 +5,8 @@ tests/test_torch_cuda.py. Also the four repairs that let a Tanimoto GP fit
 and predict in the port: no lengthscale in its kernel, no lengthscale prior,
 a zero gradient for the unused raw lengthscale, and a config that accepts
 the kernel."""
+import gc
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +22,14 @@ from sober_tpu_torch.gp import exact as tx
 from sober_tpu_torch.gp.tanimoto import batch_tanimoto_sim, fit_tanimoto_gp
 from sober_tpu_torch.interop import gp_state_from_numpy, gp_state_to_numpy
 from sober_tpu_torch.ops.kernels import make_kernel
-from sober_tpu_torch.ops.tanimoto_gram import (pack_bits, pack_bits_reference,
+from sober_tpu_torch.ops.tanimoto_gram import (POOLS, PackCache,
+                                               check_fingerprints, pack_bits,
+                                               pack_bits_reference,
+                                               tanimoto_gram_packed,
+                                               tanimoto_gram_packed_reference,
                                                tanimoto_similarity,
                                                tanimoto_similarity_reference)
+from sober_tpu_torch.priors.dataset import DatasetPrior
 
 
 def _bits(n, d, seed, density=0.025, zero_rows=()):
@@ -114,15 +121,96 @@ def test_pack_layout_matches_packbits(d):
 
 
 def test_wrappers_take_reference_on_cpu():
-    """On CPU tensors the wrappers compute the references and launch
-    nothing."""
+    """On CPU tensors the wrappers compute the references, launch nothing
+    and read no flag."""
     x = torch.as_tensor(_bits(20, 64, 4))
-    n_sim, n_pack = tanimoto_similarity.launches, pack_bits.launches
+    n_sim, n_pack = tanimoto_gram_packed.launches, pack_bits.launches
+    n_reads = check_fingerprints.reads
     assert torch.equal(tanimoto_similarity(x, x[:7]),
                        tanimoto_similarity_reference(x, x[:7]))
     got, want = pack_bits(x), pack_bits_reference(x)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (tanimoto_similarity.launches, pack_bits.launches) == (n_sim, n_pack)
+    assert torch.equal(tanimoto_gram_packed(*got, *want),
+                       tanimoto_gram_packed_reference(*want, *want))
+    check_fingerprints("cpu")
+    assert (tanimoto_gram_packed.launches, pack_bits.launches,
+            check_fingerprints.reads) == (n_sim, n_pack, n_reads)
+
+
+@pytest.mark.parametrize("bad", [0.5, float("nan"), 2.0, -1.0])
+def test_pack_reference_marks_non_binary_rows(bad):
+    """A row holding a value other than 0 or 1 packs to the count -1 (its
+    words as the kernel's ballot gives them: a bit wherever x != 0); the
+    other rows keep their popcounts."""
+    x = _bits(9, 70, 7, density=0.3)
+    clean_words, clean_counts = pack_bits_reference(torch.as_tensor(x))
+    x[4, 33] = bad
+    words, counts = pack_bits_reference(torch.as_tensor(x))
+    want = clean_counts.clone()
+    want[4] = -1
+    assert torch.equal(counts, want)
+    keep = torch.arange(9) != 4
+    assert torch.equal(words[keep], clean_words[keep])
+    assert int(words[4, 1]) & 2 and int(words[4, 1]) & ~2 == int(clean_words[4, 1]) & ~2
+
+
+@pytest.mark.parametrize("d", [33, 300, 2048])
+def test_packed_gram_matches_jax_pallas(d):
+    """The Gram kernel's function on packed operands, in its plain version,
+    against JAX's Pallas kernel in interpret mode and a float64 oracle, to
+    1e-6, all-zero rows on both sides; a row or column of count -1 is NaN
+    and the rest unchanged."""
+    x = _bits(45, d, 11, zero_rows=(0, 7))
+    y = _bits(70, d, 12, zero_rows=(69,))
+    xw, nx = pack_bits_reference(torch.as_tensor(x))
+    yw, ny = pack_bits_reference(torch.as_tensor(y))
+    got = tanimoto_gram_packed_reference(xw, nx, yw, ny).numpy()
+    pallas = np.asarray(tanimoto_gram_pallas(
+        jnp.asarray(x), jnp.asarray(y), tile_m=64, tile_n=64, interpret=True))
+    assert np.isfinite(got).all() and got[0, 0] == 0.0 and got[7, 69] == 0.0
+    assert np.abs(got - pallas).max() <= 1e-6
+    assert np.abs(got - _oracle(x, y)).max() <= 1e-6
+    np.testing.assert_array_equal(
+        got, tanimoto_similarity_reference(torch.as_tensor(x),
+                                           torch.as_tensor(y)).numpy())
+    nx[3], ny[10] = -1, -1
+    marked = tanimoto_gram_packed_reference(xw, nx, yw, ny).numpy()
+    assert np.isnan(marked[3]).all() and np.isnan(marked[:, 10]).all()
+    keep_r, keep_c = np.arange(45) != 3, np.arange(70) != 10
+    np.testing.assert_array_equal(marked[keep_r][:, keep_c], got[keep_r][:, keep_c])
+
+
+def test_pack_cache_hits_misses_and_forgets():
+    """A registered tensor is packed at its first lookup and then reused;
+    a write to it (its _version) makes the next lookup repack; other
+    tensors, its views and copies included, are not looked up; a dead
+    tensor leaves no entry, and the cache never keeps it alive."""
+    cache = PackCache(pack_bits_reference)
+    pool = torch.as_tensor(_bits(30, 100, 8))
+    cache.register(pool)
+    assert len(cache) == 1 and cache.packs == 0
+    first = cache.lookup(pool)
+    assert cache.packs == 1
+    assert all(torch.equal(a, b) for a, b in zip(first, pack_bits_reference(pool)))
+    assert cache.lookup(pool) is first and cache.packs == 1
+    assert all(cache.lookup(other) is None
+               for other in (pool.clone(), pool[:5], pool.view(30, 100)))
+    pool[2, 3] = 1.0 - pool[2, 3]
+    second = cache.lookup(pool)
+    assert cache.packs == 2 and second is not first
+    assert torch.equal(second[1], pack_bits_reference(pool)[1])
+    assert cache.lookup(pool) is second and cache.packs == 2
+    del pool, first, second
+    gc.collect()
+    assert len(cache) == 0
+
+
+def test_dataset_prior_registers_its_pool_only_on_cuda():
+    """On the CPU the Gram takes the reference, so a prior registers
+    nothing."""
+    n = len(POOLS)
+    prior = DatasetPrior(_bits(12, 40, 9), np.zeros(12, np.float32), device="cpu")
+    assert len(POOLS) == n and POOLS.lookup(prior.features) is None
 
 
 # ----------------------------------------------------------------------------
