@@ -32,8 +32,6 @@ _SIGNATURES = {
     "sober_car_eliminate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "sober_pack_bits": (_P, _P, _P, _P, _I, _I, _P),
     "sober_tanimoto_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "sober_tanimoto_gram_b1": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "sober_tanimoto_gram_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I),
 }
 
 _lib: ctypes.CDLL | None = None

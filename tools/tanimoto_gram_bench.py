@@ -4,8 +4,7 @@ shapes, on one CUDA device.
     python3 tools/tanimoto_gram_bench.py [--parent DIR]
 
 For each shape, on random fingerprints at 2.5% bit density packed
-beforehand: the Gram of `sober_tpu_torch/csrc/tanimoto_gram.cu` and its b1
-variant (mma.sync m16n8k256 and.popc), each held to
+beforehand: the Gram of `sober_tpu_torch/csrc/tanimoto_gram.cu`, held to
 `tanimoto_similarity_reference` bit for bit; with --parent, the Gram of
 another checkout of the repository (built from that checkout's own csrc) on
 the same words, e.g. the parent commit's; and `torch._int_mm` on int8 0/1
@@ -73,10 +72,10 @@ def main() -> None:
         raise SystemExit("tanimoto_gram_bench: needs a CUDA device")
     lib = _build.load_library()
     log = _build.library_path().with_suffix(".log").read_text()
-    print("\n".join(line for line in log.splitlines()
-                    if "tanimoto_gram_kernel" in line
-                    or ("registers" in line or "spill" in line)), flush=True)
-    variants = {"s8": lib.sober_tanimoto_gram, "b1": lib.sober_tanimoto_gram_b1}
+    lines = log.splitlines()
+    print("\n".join(lines[k + 1] + " " + lines[k + 2] for k, line in enumerate(lines)
+                    if "Compiling entry" in line and "tanimoto_gram" in line), flush=True)
+    variants = {"gram": lib.sober_tanimoto_gram}
     if args.parent is not None:
         variants["parent"] = parent_library(args.parent).sober_tanimoto_gram
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -96,16 +95,6 @@ def main() -> None:
             row[f"{name}_bits_differ"] = int((out != want).sum())
             row[f"{name}_max_abs_err"] = float((out - want).abs().max())
             row[f"{name}_ms"] = cuda_ms(run, reps=20)
-        if n == SHAPES[0][0]:
-            out = torch.empty((n, m), device="cuda")
-            for variant in range(3):
-                for mode in (0, 1, 3, 7, 15, 11):
-                    fn = lambda *a, v=variant, md=mode: lib.sober_tanimoto_gram_probe(*a, v, md)
-                    run = gram_call(fn, xw, nx, yw, ny, out)
-                    row[f"probe_v{variant}_m{mode}_ms"] = cuda_ms(run, reps=20)
-                    if mode == 0:
-                        torch.cuda.synchronize()
-                        row[f"probe_v{variant}_bits_differ"] = int((out != want).sum())
         row["int_mm_ms"] = int_mm_ms(x, y)
         row["plain_ms"] = cuda_ms(lambda: tanimoto_similarity_reference(x, y), reps=20)
         row["bound_ms"], row["bound_by"] = bound_ms(
