@@ -217,6 +217,11 @@ def tanimoto_gram_packed(xw: torch.Tensor, nx: torch.Tensor, yw: torch.Tensor,
             f"tanimoto: need words (n, W), (m, W) and counts (n,), (m,), got "
             f"{tuple(xw.shape)}, {tuple(yw.shape)}, {tuple(nx.shape)}, "
             f"{tuple(ny.shape)}")
+    return _gram(xw, nx, yw, ny)
+
+
+def _gram(xw, nx, yw, ny) -> torch.Tensor:
+    """The Gram kernel's launch on packed CUDA operands already checked."""
     n, m, n_words = xw.shape[0], yw.shape[0], xw.shape[1]
     out = torch.empty((n, m), dtype=torch.float32, device=xw.device)
     if n == 0 or m == 0:
@@ -227,7 +232,7 @@ def tanimoto_gram_packed(xw: torch.Tensor, nx: torch.Tensor, yw: torch.Tensor,
         xw.data_ptr(), yw.data_ptr(), nx.data_ptr(), ny.data_ptr(),
         out.data_ptr(), n, m, n_words,
         torch.cuda.current_stream(xw.device).cuda_stream)
-    check(rc, "tanimoto_gram_packed")
+    check(rc, "tanimoto_gram")
     tanimoto_gram_packed.launches += 1
     return out
 
@@ -249,7 +254,7 @@ def tanimoto_similarity(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             f"and {tuple(y.shape)}")
     xw, nx = POOLS.lookup(x) or pack_bits(x)
     yw, ny = (xw, nx) if y is x else POOLS.lookup(y) or pack_bits(y)
-    return tanimoto_gram_packed(xw, nx, yw, ny)
+    return _gram(xw, nx, yw, ny)
 
 
 pack_bits.launches = 0
