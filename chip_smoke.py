@@ -576,6 +576,7 @@ def phase_non_binary(pool, pool_t) -> None:
     dev = torch.device("cuda")
     check_fingerprints(dev)
     clean = pool_t[:64]
+    reads_in_grams = 0
     for value in (0.5, float("nan"), 2.0):
         bad = clean.clone()
         bad[3, 7] = value
@@ -591,7 +592,8 @@ def phase_non_binary(pool, pool_t) -> None:
             rest_ref = ref[keep] if line == 0 else ref[:, keep]
             require(bool(torch.isnan(marked).all()) and torch.equal(rest, rest_ref),
                     f"non-binary {value}: NaN in exactly its {'row' if line == 0 else 'column'}")
-        require(check_fingerprints.reads == reads, "a Gram read the flag")
+        reads_in_grams += check_fingerprints.reads - reads
+        require(reads_in_grams == 0, "a Gram read the flag")
         try:
             check_fingerprints(dev)
         except ValueError:
@@ -608,8 +610,8 @@ def phase_non_binary(pool, pool_t) -> None:
         pass
     else:
         raise RuntimeError("check failed: a pool holding 0.5 passed its first Gram")
-    emit(phase="tanimoto_non_binary", values=[0.5, "nan", 2.0], nan_rows_and_columns=True,
-         flag_reads_in_grams=0, pool_raises_at_first_gram=True)
+    emit(phase="tanimoto_non_binary", values=[0.5, "nan", 2.0],
+         flag_reads_in_grams=reads_in_grams)
 
 
 def state_to(state, dev):
@@ -756,11 +758,12 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
     # the pool is packed (and its flag read) at the first next_batch; the
     # other host reads are check_fingerprints, once per next_batch
     loop_pool_packs = POOLS.packs - loop_packs0
-    reads = check_fingerprints.reads - reads0
+    loop_reads = check_fingerprints.reads - reads0
     require(loop_pool_packs == 1, f"dataset: the pool was packed {loop_pool_packs} "
             "times in the timed loop, want once")
-    require(reads == 1 + ITERS + loop_pool_packs,
-            f"dataset: {reads} flag reads in {1 + ITERS} next_batch calls")
+    require(loop_reads == 1 + ITERS + loop_pool_packs,
+            f"dataset: {loop_reads} flag reads in {1 + ITERS} next_batch calls, "
+            "want one each and one at the pool's pack")
     require(n_pack - loop_pool_packs == DATASET_PACKS * (1 + ITERS),
             f"dataset: {n_pack - loop_pool_packs} packs besides the pool's, want "
             f"{DATASET_PACKS} per next_batch")
@@ -795,8 +798,8 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
                                  "pack_bits": (n_pack - loop_pool_packs) / (1 + ITERS),
                                  "car_eliminate": n_car / (1 + ITERS)},
          pool_packs_in_phase=phase_pool_packs,
-         flag_reads_per_iteration=(reads - loop_pool_packs) / (1 + ITERS),
-         flag_reads_in_grams=0, car_variant_launches=variants,
+         next_batch_calls=1 + ITERS, pool_packs_in_loop=loop_pool_packs,
+         flag_reads_in_loop=loop_reads, car_variant_launches=variants,
          profile_one_iteration=profiled,
          moment_err_max=max(moms), w_sum=float(w_b.sum()),
          n_pos=int(sober.last_npos), peak_mem_gib=peak_gib)

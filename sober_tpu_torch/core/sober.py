@@ -147,11 +147,10 @@ class Sober(EmpiricalSampler):
 
     def _finish_batch(self, idx_global, x_batch, w_rchq, t0,
                       return_weights: bool):
-        """Tail of next_batch: the fingerprint check of a dataset domain
-        (its one host read of the flag the packs raise), timings and the
+        """Tail of next_batch: the fingerprint check (the one host read of
+        the flag that the Tanimoto Grams' packs raise), timings and the
         return value."""
-        if self.prior.type == "dataset":
-            check_fingerprints(self.prior.device)
+        check_fingerprints(self.prior.device)
         total = time.monotonic() - t0
         self.last_timings = {"fused_iteration": total, "total": total}
         self.last_path = "fused"

@@ -20,7 +20,7 @@ fingerprint flag, which no Gram reads: `check_fingerprints` reads and resets
 it and raises ValueError. `Sober.next_batch` and `fit_tanimoto_gp` call it
 once at their end, where they wait on the card anyway.
 
-A pool packed once. `register_pool(t)` marks a long-lived operand (a
+A pool packed once. `POOLS.register(t)` marks a long-lived operand (a
 `DatasetPrior`'s features). The first Gram that takes it packs it and checks
 its flag (one host read); later Grams on the same tensor, unwritten since
 (`t._version`), reuse the words and counts. The registry holds the tensor by
@@ -196,7 +196,6 @@ def _pack_pool(x: torch.Tensor):
 
 # the registry of pools that tanimoto_similarity packs once
 POOLS = PackCache(_pack_pool)
-register_pool = POOLS.register
 
 
 def tanimoto_gram_packed(xw: torch.Tensor, nx: torch.Tensor, yw: torch.Tensor,

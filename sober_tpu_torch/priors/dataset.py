@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..config import resolve_device
-from ..ops.tanimoto_gram import register_pool
+from ..ops.tanimoto_gram import POOLS
 from .base import BasePrior
 
 
@@ -33,7 +33,7 @@ class DatasetPrior(BasePrior):
         self.available = torch.ones(self.n_total, dtype=torch.bool,
                                     device=self.device)
         if self.device.type == "cuda":
-            register_pool(self.features)
+            POOLS.register(self.features)
 
     @property
     def n_available(self) -> int:
