@@ -13,8 +13,10 @@ The script
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
   1. builds the hand-written kernels from sober_tpu_torch/csrc;
-  2. holds the RBF Gram kernel to its plain PyTorch reference at the main
-     path's shapes, and times both;
+  2. holds the RBF Gram kernel to its plain PyTorch reference at every
+     shape the continuous iterations launch it at (and at d = 100), and
+     times both, with torch's fill_ of the same output as a yardstick of
+     the card's write rate beside each strip;
   3. holds the Caratheodory kernel to its reference at both configs'
      shapes, and times both;
   4. holds the Tanimoto Gram and its bit-pack kernel to their references
@@ -50,6 +52,17 @@ import torch
 # (name, n_cand, batch, n_nys, d, n_obs, CAR launches per iteration)
 CONFIGS = (("65k/200", 65_536, 200, 512, 10, 500, 9),
            ("200k/100", 200_000, 100, 500, 4, 500, 11))
+# the RBF Grams of one continuous iteration, (n, m, launches) per config:
+# K(X, X) in build_state and posterior_max_mean, K(pool, X) in the pi
+# sweep's predict, then in recombination's two predictive_covariance calls
+# K(nys, nys), K(nys, X), K(X, nys), K(nys, pool), K(nys, X), K(X, pool)
+RBF_SHAPES = {"65k/200": ((500, 500, 2), (65_536, 500, 1), (512, 512, 1),
+                          (512, 500, 2), (500, 512, 1), (512, 65_536, 1),
+                          (500, 65_536, 1)),
+              "200k/100": ((500, 500, 6), (200_000, 500, 1), (500, 200_000, 2))}
+# a Gram of at least this many entries is a strip: store-bound, and timed
+# beside fill_
+STRIP = 10_000_000
 ITERS = 5
 # the screening iteration of bench.py:bench_dataset: pool rows, bits, bit
 # density, observations, n_rec, n_nys, batch
@@ -141,16 +154,32 @@ def phase_build() -> None:
 
 
 def phase_rbf(summary: dict) -> None:
+    """The RBF kernel against its reference at every (n, m, d) the
+    continuous iterations launch, scalar and ARD lengthscales, and at
+    d = 100 (the first port refused d > 64); device time per iteration of
+    each config, summed over its launches."""
     from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
 
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
-    shapes = (("feature strip K(nys, pool)", 512, 65_536),
-              ("K(pool, X) in predict", 65_536, 500))
-    for label, n, m in shapes:
-        d = 10
-        x = torch.as_tensor(rng.uniform(-1, 1, (n, d)), dtype=torch.float32, device=dev)
-        y = torch.as_tensor(rng.uniform(-1, 1, (m, d)), dtype=torch.float32, device=dev)
+    cases = [(name, d, n, m, k) for name, _, _, _, d, _, _ in CONFIGS
+             for n, m, k in RBF_SHAPES[name]]
+    cases.append(("width", 100, 512, 65_536, 0))
+    per_iteration = {}
+    for config, d, n, m, launches in cases:
+        # at d = 100, coordinates in [-0.3, 0.3] keep the entries far from 0
+        # and the reference's norm trick accurate
+        scale = 1.0 if d <= 32 else 0.3
+        x = torch.as_tensor(rng.uniform(-scale, scale, (n, d)), dtype=torch.float32,
+                            device=dev)
+        y = torch.as_tensor(rng.uniform(-scale, scale, (m, d)), dtype=torch.float32,
+                            device=dev)
+        # x and y read once, the Gram written once; 3 d + 2 flops an entry
+        # (difference and square-add a feature; exp and scale)
+        bound, by = bound_ms(4.0 * ((n + m) * d + n * m), float(n) * m * (3 * d + 2),
+                             FP32_PEAK)
+        store_ms = (cuda_ms(lambda: torch.empty((n, m), device=dev).fill_(1.0))
+                    if n * m >= STRIP else None)
         for ard in (False, True):
             ls = (torch.as_tensor(rng.uniform(0.5, 1.5, d), dtype=torch.float32, device=dev)
                   if ard else torch.tensor(0.8, device=dev))
@@ -160,21 +189,31 @@ def phase_rbf(summary: dict) -> None:
             want = rbf_gram_reference(params, x, y)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
+            # float64 direct differences on the first rows
+            xs, ys = x[:64].double() / ls.double(), y.double() / ls.double()
+            exact = float(os_) * torch.exp(-0.5 * ((xs[:, None] - ys[None]) ** 2).sum(-1))
+            oracle_err = float((got[:64].double() - exact).abs().max())
+            del xs, ys, exact
             # the kernel sums squared differences directly, the reference
             # uses the norm trick: they differ by the latter's cancellation
-            require(err <= 1e-5 * float(os_), f"rbf {label} ard={ard}: err {err}")
+            require(err <= 1e-5 * float(os_) and oracle_err <= 1e-5 * float(os_),
+                    f"rbf {n}x{m} d={d} ard={ard}: err {err}, oracle {oracle_err}")
             ms = cuda_ms(lambda: rbf_gram(params, x, y))
             plain_ms = cuda_ms(lambda: rbf_gram_reference(params, x, y))
-            emit(phase="rbf_gram", shape=[n, m, d], ard=ard, label=label,
-                 max_abs_err=err, tol=1e-5 * float(os_), ms=ms, plain_ms=plain_ms)
-            if n == 512 and not ard:
-                # x and y read once, the Gram written once; 3 d + 2 flops an
-                # entry (scale, difference, square-add; exp and scale)
-                bound, by = bound_ms(4.0 * ((n + m) * d + n * m),
-                                     float(n) * m * (3 * d + 2), FP32_PEAK)
+            emit(phase="rbf_gram", config=config, shape=[n, m, d], ard=ard,
+                 launches_per_iteration=launches, max_abs_err=err,
+                 oracle_max_abs_err=oracle_err, tol=1e-5 * float(os_), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by=by, store_library_ms=store_ms)
+            if not ard and launches:
+                acc = per_iteration.setdefault(config, {"ms": 0.0, "bound_ms": 0.0})
+                acc["ms"] += launches * ms
+                acc["bound_ms"] += launches * bound
+            if (n, m, d, ard) == (512, 65_536, 10, False):
                 summary["rbf_gram"] = {"max_abs_err": err, "ms": ms,
                                        "plain_ms": plain_ms, "bound_ms": bound,
-                                       "bound_by": by, "shape": [n, m, d]}
+                                       "bound_by": by, "store_library_ms": store_ms,
+                                       "shape": [n, m, d]}
+    emit(phase="rbf_gram_per_iteration", device_ms=per_iteration)
 
 
 def car_problem(m, q, dev):
@@ -392,9 +431,9 @@ def car_variant_check(batch: int, before: dict, label: str) -> dict:
 
 
 def car_profile(run) -> dict:
-    """torch.profiler over one run: the CAR kernels' device time and count,
-    and the device time of all kernels. None where the trace shows no device
-    time."""
+    """torch.profiler over one run: the CAR and RBF kernels' device time and
+    count, and the device time of all kernels. None where the trace shows no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -405,9 +444,12 @@ def car_profile(run) -> dict:
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     car = [e for e in rows if "car_smem_kernel" in e.key or "car_l2_kernel" in e.key]
+    rbf = [e for e in rows if "rbf_gram_kernel" in e.key]
     total = sum(dev_us(e) for e in rows)
     return {"car_device_ms": sum(dev_us(e) for e in car) / 1e3 if total else None,
             "car_kernels": sum(e.count for e in car),
+            "rbf_device_ms": sum(dev_us(e) for e in rbf) / 1e3 if total else None,
+            "rbf_kernels": sum(e.count for e in rbf),
             "all_device_ms": total / 1e3 if total else None}
 
 
@@ -444,7 +486,9 @@ def phase_iteration(cfg_row, counts: dict) -> None:
     counts["car_eliminate"] = counts.get("car_eliminate", 0) + n_car
     require(n_car == car_per_iter * (1 + ITERS),
             f"{name}: {n_car} CAR launches, want {car_per_iter} per iteration")
-    require(n_rbf > 0, f"{name}: the RBF kernel never launched")
+    rbf_per_iter = sum(k for _, _, k in RBF_SHAPES[name])
+    require(n_rbf == rbf_per_iter * (1 + ITERS),
+            f"{name}: {n_rbf} RBF launches, want {rbf_per_iter} per iteration")
 
     check_batch(idx, w, n_cand, batch, name)
     mom = moment_error(lambda a, b: predictive_covariance(state, a, b),
@@ -832,10 +876,9 @@ def main() -> None:
                         "bound_by": s["bound_by"],
                         # no single PyTorch call computes any of the four
                         "library_ms": None, "shape": s["shape"],
-                        **{k: s[k] for k in ("gram_ms", "product_library_ms")
-                           if k in s},
-                        **({"step_floor_ms": s["step_floor_ms"]}
-                           if "step_floor_ms" in s else {})})
+                        **{k: s[k] for k in ("gram_ms", "product_library_ms",
+                                             "store_library_ms", "step_floor_ms")
+                           if k in s}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

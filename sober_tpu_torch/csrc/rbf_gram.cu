@@ -6,102 +6,437 @@
 // into one tile on the TPU.
 //
 // What bounds it on this card: on the main path d is 4 or 10, so each output
-// costs ~3d flops and one 4-byte store. At 512 x 65,536 that is ~1 GFLOP
-// against a 134 MB write: the kernel is bound by the output write to device
-// memory, not by arithmetic, and a tensor-core product would buy nothing.
+// costs ~2d + 2 instructions and one 4-byte store. At 512 x 65,536 that is
+// ~0.03 ms of fp32 issue against 0.040 ms to write the 134 MB Gram: the
+// output write to device memory bounds it, and the arithmetic comes close
+// enough that the two must overlap. A tensor-core product would buy nothing.
 //
-// What the design does about it: a plain 2-D tiled SIMT kernel. A block of
-// 32 x 8 threads stages a tile of 64 scaled x rows and 128 scaled y rows in
-// shared memory, transposed to [k][row] so a warp reads consecutive words.
-// Each thread owns 8 x 4 outputs and accumulates the d-term sum of squared
-// differences in registers (a direct difference, not the norm trick of
-// ops/kernels.py: no cancellation and no clamp at 0 needed), then applies
-// os * exp and stores. For a fixed output row the 32 lanes of a warp store
-// 32 consecutive words, so every store is one coalesced 128-byte line.
-// d may be anything up to MAX_D; the Matern epilogues can reuse the tile.
+// What the design does about it:
+//  * Persistent blocks of 8 warps (2 an SM) walk 64 x 128 output tiles, as
+//    many blocks as the card holds at once and never more than the tiles, so
+//    the small Grams (<= 512 x 512, 32 tiles) keep one tile a block.
+//  * The operand rows of a tile (64 x rows, 128 y rows) are staged in
+//    passes of up to 32 features through two shared-memory buffers: while a
+//    pass computes, cp.async brings the next pass (of this tile or the next)
+//    into the other buffer, transposed to [k][row]. Any d runs; d <= 32 is
+//    one pass. Rows past n or m are zero-filled and never stored.
+//  * Each staged pass is multiplied in place by sqrt(0.5 log2 e) / ls[k], so
+//    the epilogue is one ex2.approx.ftz and one multiply by os an output
+//    (2^-r equals exp(-0.5 r') for the unfolded r'). Squared differences
+//    are summed directly (not by the norm trick of ops/kernels.py, whose
+//    cancellation grows with d). ex2.approx.ftz writes 0 where the result
+//    is below 2^-126 and the reference keeps a denormal (< 1.2e-38 apart).
+//  * A warp owns 8 output rows of a tile, a lane 4 consecutive columns, so
+//    the lane's 8 x 4 sums read one float4 of y and two broadcast float4s of
+//    x from shared memory a feature. The outputs leave in one of two ways
+//    (STORE, timed side by side by tools/rbf_gram_bench.py):
+//      kVec:  a 16-byte streaming store (st.global.cs.v4) a row from the
+//             lane's registers: a warp writes 512 contiguous bytes at once;
+//      kBulk: the warp stages its 8 rows in a double-buffered slice of
+//             shared memory and 8 lanes each hand one row to an
+//             asynchronous bulk copy (cp.async.bulk.global.shared::cta),
+//             which drains while the next tile computes.
+//    Where m is not a multiple of 4 (or out is not 16-byte aligned) the
+//    rows are not 16-byte aligned, and both write 4 bytes at a time.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TX = 32;          // threads along y (output columns)
-constexpr int TY = 8;           // threads along x (output rows)
-constexpr int BM = 64;          // x rows per block
-constexpr int BN = 128;         // y rows per block
-constexpr int RM = BM / TY;     // output rows per thread
-constexpr int RN = BN / TX;     // output columns per thread
-constexpr int MAX_D = 64;       // (BM + BN) * MAX_D * 4 B = 48 KB of shared memory
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BM = 64;                  // x rows a tile
+constexpr int BN = 128;                 // y rows a tile
+constexpr int RM = BM / WARPS;          // output rows a warp (and a lane)
+constexpr int RN = 4;                   // output columns a lane
+constexpr int BR = BM + BN;             // operand rows staged a tile
+constexpr int SB = BR + 4;              // floats a staged feature: the
+                                        // transposing copies spread over banks
+constexpr int DK = 32;                  // features staged a pass
+constexpr int MAX_BLOCKS_PER_SM = 2;
+constexpr int STAGE_FLOATS = WARPS * 2 * RM * BN;   // kRows, kTma: 64 KB
+// sqrt(0.5 * log2(e)): scaled by it over ls, 2^-|x - y|^2 is the RBF
+constexpr float FOLD = 0.8493218002880191f;
 
-__global__ void __launch_bounds__(TX * TY)
-rbf_gram_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                const float* __restrict__ ls, const float* __restrict__ os,
-                float* __restrict__ out, int n, int m, int d) {
-  extern __shared__ float smem[];
-  float* xs = smem;             // [d][BM]
-  float* ys = smem + d * BM;    // [d][BN]
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  const int i0 = blockIdx.y * BM;
-  const int j0 = blockIdx.x * BN;
+// kVec: st.global.cs.v4 from registers; kWb: st.global.v4; kRows: a
+// bulk copy a row from shared memory; kTma: a TMA tensor store a warp
+enum Store { kVec = 0, kWb = 1, kRows = 2, kTma = 3 };
+constexpr int STORES = 4;
+// Probes for tools/rbf_gram_bench.py: kNoStore computes every output and
+// writes none; kNoCompute stages the operands and writes os everywhere.
+enum Probe { kFull = 0, kNoStore = 1, kNoCompute = 2 };
+constexpr int VARIANTS = 3 * STORES;    // STORE + STORES * PROBE
 
-  // global reads are row-major and contiguous across the block; rows past
-  // the edge are staged as zeros and never stored
-  for (int e = tid; e < BM * d; e += TX * TY) {
-    const int r = e / d, k = e - r * d, i = i0 + r;
-    xs[k * BM + r] = i < n ? x[(size_t)i * d + k] / ls[k] : 0.f;
+struct Problem {
+  const float* x;
+  const float* y;
+  const float* ls;
+  const float* os;
+  float* out;
+  int n, m, d, ls_stride, m_tiles, tiles, passes;
+  bool vec;     // m % 4 == 0 and out 16-byte aligned
+};
+
+// Where a thread's cp.async elements of a pass start and how they step:
+// element e = tid + t * THREADS of a pass kw features wide is operand row
+// e / kw, feature e % kw; rows and features advance without a division.
+struct Walk {
+  int kw, r0, k0, dr, dk;
+};
+
+__device__ __forceinline__ Walk make_walk(int kw) {
+  const int r0 = threadIdx.x / kw, dr = THREADS / kw;
+  return {kw, r0, (int)threadIdx.x - r0 * kw, dr, THREADS - dr * kw};
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// Stage step `seq` of this block's walk (pass seq % passes of its tile
+// number seq / passes) into buf as [k][row], unscaled. Commits one group,
+// empty past the last tile.
+__device__ __forceinline__ void load_step(const Problem& p, float* buf,
+                                          int seq, const Walk& full,
+                                          const Walk& last) {
+  const int q = seq / p.passes, c = seq - q * p.passes;
+  const int tile = blockIdx.x + q * gridDim.x;
+  if (tile < p.tiles) {
+    const int i0 = (tile / p.m_tiles) * BM, j0 = (tile % p.m_tiles) * BN;
+    const Walk& w = c == p.passes - 1 ? last : full;
+    const int k0 = c * DK;
+    const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(buf));
+    for (int r = w.r0, k = w.k0; r < BR;) {
+      const bool is_x = r < BM;
+      const int row = is_x ? i0 + r : j0 + r - BM;
+      const bool ok = row < (is_x ? p.n : p.m);
+      const float* src = ok ? (is_x ? p.x : p.y) + (size_t)row * p.d + k0 + k : p.x;
+      cp_async4(base + 4u * (k * SB + r), src, ok ? 4 : 0);
+      r += w.dr;
+      k += w.dk;
+      if (k >= w.kw) {
+        k -= w.kw;
+        ++r;
+      }
+    }
   }
-  for (int e = tid; e < BN * d; e += TX * TY) {
-    const int r = e / d, k = e - r * d, j = j0 + r;
-    ys[k * BN + r] = j < m ? y[(size_t)j * d + k] / ls[k] : 0.f;
-  }
-  __syncthreads();
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  float acc[RM][RN];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) acc[r][c] = 0.f;
+__device__ __forceinline__ float ex2(float a) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(a));
+  return r;
+}
 
-  for (int k = 0; k < d; ++k) {
-    float xv[RM], yv[RN];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) xv[r] = xs[k * BM + threadIdx.y + r * TY];
-#pragma unroll
-    for (int c = 0; c < RN; ++c) yv[c] = ys[k * BN + threadIdx.x + c * TX];
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))),
+         "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// rows [row, row + RM) x columns [col, col + BN) of out from src ([RM][BN]);
+// the tensor map clips what lies past n or m
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const float* src,
+                                          int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))), "r"(col), "r"(row)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// 4 bytes at a time, for rows that are not 16-byte aligned and ragged ends
+__device__ __forceinline__ void store_scalar(float* o, const float4& v, int left) {
+  if (left > 0) __stcs(o, v.x);
+  if (left > 1) __stcs(o + 1, v.y);
+  if (left > 2) __stcs(o + 2, v.z);
+  if (left > 3) __stcs(o + 3, v.w);
+}
+
+// floats of the two operand buffers, rounded up to 128 bytes
+__host__ __device__ __forceinline__ int operand_floats(int dk) {
+  return (2 * dk * SB + 31) / 32 * 32;
+}
+
+template <int STORE, int PROBE>
+__global__ void __launch_bounds__(THREADS, MAX_BLOCKS_PER_SM)
+rbf_gram_kernel(const Problem p, const __grid_constant__ CUtensorMap map) {
+  extern __shared__ __align__(128) float smem[];
+  const int dk_max = p.d < DK ? p.d : DK;
+  float* stage = smem + operand_floats(dk_max);   // kRows and kTma
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Walk full = make_walk(DK);
+  const Walk last = make_walk(p.d - (p.passes - 1) * DK);
+  const float scale = *p.os;
+  (void)stage;
+
+  int seq = 0;
+  load_step(p, smem, 0, full, last);
+  for (int q = 0;; ++q) {
+    const int tile = blockIdx.x + q * gridDim.x;
+    if (tile >= p.tiles) break;
+    const int i0 = (tile / p.m_tiles) * BM, j0 = (tile % p.m_tiles) * BN;
+    float acc[RM][RN];
 #pragma unroll
     for (int r = 0; r < RM; ++r)
 #pragma unroll
-      for (int c = 0; c < RN; ++c) {
-        const float t = xv[r] - yv[c];
-        acc[r][c] = fmaf(t, t, acc[r][c]);
-      }
-  }
+      for (int c = 0; c < RN; ++c) acc[r][c] = 0.f;
 
-  const float scale = *os;
+    for (int c = 0; c < p.passes; ++c, ++seq) {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();   // step seq landed for all; step seq - 1 is consumed
+      load_step(p, smem + ((seq + 1) & 1) * dk_max * SB, seq + 1, full, last);
+      float* sb = smem + (seq & 1) * dk_max * SB;
+      const int k0 = c * DK;
+      const int kw = c == p.passes - 1 ? last.kw : DK;
+      for (int k = warp; k < kw; k += WARPS) {
+        const float s = FOLD / p.ls[(size_t)(k0 + k) * p.ls_stride];
+        for (int r = lane; r < BR; r += 32) sb[k * SB + r] *= s;
+      }
+      __syncthreads();
+      if (PROBE == kNoCompute) continue;
+#pragma unroll 2
+      for (int k = 0; k < kw; ++k) {
+        const float* row = sb + k * SB;
+        const float4 xa = *reinterpret_cast<const float4*>(row + RM * warp);
+        const float4 xb = *reinterpret_cast<const float4*>(row + RM * warp + 4);
+        const float4 yv = *reinterpret_cast<const float4*>(row + BM + RN * lane);
+        const float xs[RM] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        const float ys[RN] = {yv.x, yv.y, yv.z, yv.w};
 #pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int i = i0 + threadIdx.y + r * TY;
-    if (i >= n) continue;
+        for (int r = 0; r < RM; ++r)
 #pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      const int j = j0 + threadIdx.x + c * TX;
-      if (j < m) out[(size_t)i * m + j] = scale * expf(-0.5f * acc[r][c]);
+          for (int cc = 0; cc < RN; ++cc) {
+            const float t = xs[r] - ys[cc];
+            acc[r][cc] = fmaf(-t, t, acc[r][cc]);
+          }
+      }
+    }
+
+    float4 v[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+      v[r] = PROBE == kNoCompute
+                 ? make_float4(scale, scale, scale, scale)
+                 : make_float4(scale * ex2(acc[r][0]), scale * ex2(acc[r][1]),
+                               scale * ex2(acc[r][2]), scale * ex2(acc[r][3]));
+    if (PROBE == kNoStore) {
+      // keep every output live without writing it
+      float sink = 0.f;
+#pragma unroll
+      for (int r = 0; r < RM; ++r) sink += v[r].x + v[r].y + v[r].z + v[r].w;
+      if (sink == -1.f) p.out[0] = sink;
+      continue;
+    }
+    const int j = j0 + RN * lane;
+    if (STORE == kTma && p.vec) {
+      float* sbuf = stage + (warp * 2 + (q & 1)) * RM * BN;
+      if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      __syncwarp();      // the store of tile q - 2 has read this slice
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+        *reinterpret_cast<float4*>(sbuf + r * BN + RN * lane) = v[r];
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        if (i0 + RM * warp < p.n)
+          tma_store(&map, sbuf, j0, i0 + RM * warp);
+        else
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      continue;
+    }
+    if (STORE == kRows && p.vec) {
+      float* sbuf = stage + (warp * 2 + (q & 1)) * RM * BN;
+      if (lane < RM) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      __syncwarp();      // the copies of tile q - 2 have read this slice
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+        *reinterpret_cast<float4*>(sbuf + r * BN + RN * lane) = v[r];
+      fence_proxy_async();
+      __syncwarp();
+      const int i = i0 + RM * warp + lane;
+      if (lane < RM) {
+        if (i < p.n) {
+          const int cols = p.m - j0 < BN ? p.m - j0 : BN;
+          bulk_store(p.out + (size_t)i * p.m + j0, sbuf + lane * BN, 4 * cols);
+        } else {
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int i = i0 + RM * warp + r;
+      if (i >= p.n || j >= p.m) continue;
+      float* o = p.out + (size_t)i * p.m + j;
+      if (p.vec && STORE == kWb)
+        *reinterpret_cast<float4*>(o) = v[r];
+      else if (p.vec)
+        __stcs(reinterpret_cast<float4*>(o), v[r]);
+      else
+        store_scalar(o, v[r], p.m - j);
     }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if ((STORE == kRows && lane < RM) || (STORE == kTma && lane == 0))
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+typedef void (*KernelFn)(const Problem, const CUtensorMap);
+
+template <int PROBE>
+KernelFn kernel_of_store(int store) {
+  switch (store) {
+    case kVec: return rbf_gram_kernel<kVec, PROBE>;
+    case kWb: return rbf_gram_kernel<kWb, PROBE>;
+    case kRows: return rbf_gram_kernel<kRows, PROBE>;
+    default: return rbf_gram_kernel<kTma, PROBE>;
+  }
+}
+
+KernelFn kernel_of(int variant) {
+  const int store = variant % STORES, probe = variant / STORES;
+  return probe == kFull ? kernel_of_store<kFull>(store)
+         : probe == kNoStore ? kernel_of_store<kNoStore>(store)
+                             : kernel_of_store<kNoCompute>(store);
+}
+
+size_t smem_bytes(int variant, int dk) {
+  const int store = variant % STORES;
+  return sizeof(float) *
+         (operand_floats(dk) + (store == kRows || store == kTma ? STAGE_FLOATS : 0));
+}
+
+// Blocks of `variant` at dk staged features that the device holds at once
+// (SMs x blocks an SM), found at the first launch of each on each device,
+// or 0 with *err set.
+int resident_blocks(int variant, int dk, cudaError_t* err) {
+  static int cache[64][VARIANTS][DK + 1];
+  int device = 0;
+  *err = cudaGetDevice(&device);
+  if (*err != cudaSuccess) return 0;
+  if (device < 64 && cache[device][variant][dk] > 0) return cache[device][variant][dk];
+  const KernelFn fn = kernel_of(variant);
+  int sms = 0, per_sm = 0;
+  *err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(variant, DK));
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
+                                                         smem_bytes(variant, dk));
+  if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
+  if (*err != cudaSuccess) return 0;
+  if (device < 64) cache[device][variant][dk] = sms * per_sm;
+  return sms * per_sm;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (the library
+// links no libcuda), or null with *err set.
+EncodeTiled encode_tiled(cudaError_t* err) {
+  static EncodeTiled fn = nullptr;
+  *err = cudaSuccess;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    *err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                            cudaEnableDefault, &found);
+    if (*err == cudaSuccess && found != cudaDriverEntryPointSuccess)
+      *err = cudaErrorSymbolNotFound;
+    if (*err == cudaSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+int launch(const float* x, const float* y, const float* ls, const float* os,
+           float* out, int n, int m, int d, int ls_stride, int variant,
+           void* stream) {
+  if (n <= 0 || m <= 0 || d < 1 || ls_stride < 0 || variant < 0 ||
+      variant >= VARIANTS)
+    return (int)cudaErrorInvalidValue;
+  const long long m_tiles = (m + BN - 1) / BN;
+  const long long tiles = ((n + BM - 1LL) / BM) * m_tiles;
+  const long long passes = (d + DK - 1) / DK;
+  if ((tiles + 1) * passes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int dk = d < DK ? d : DK;
+  cudaError_t err;
+  const long long resident = resident_blocks(variant, dk, &err);
+  if (err != cudaSuccess) return (int)err;
+  const Problem p{x, y, ls, os, out, n, m, d, ls_stride, (int)m_tiles, (int)tiles,
+                  (int)passes,
+                  (m & 3) == 0 && (reinterpret_cast<size_t>(out) & 15) == 0};
+  CUtensorMap map = {};
+  if (variant % STORES == kTma && p.vec) {
+    const EncodeTiled encode = encode_tiled(&err);
+    if (err != cudaSuccess) return (int)err;
+    const cuuint64_t dims[2] = {(cuuint64_t)m, (cuuint64_t)n};
+    const cuuint64_t strides[1] = {(cuuint64_t)m * sizeof(float)};
+    const cuuint32_t box[2] = {BN, RM}, unit[2] = {1, 1};
+    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out, dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_NONE,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  const long long grid = tiles < resident ? tiles : resident;
+  kernel_of(variant)<<<(unsigned)grid, THREADS, smem_bytes(variant, dk),
+                       (cudaStream_t)stream>>>(p, map);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (n, d), y (m, d), ls (d,), os (1,) and out (n, m): contiguous float32
-// device buffers. Launches on `stream` and returns cudaGetLastError().
+// x (n, d), y (m, d), ls (d,) or one value read with ls_stride 0, os (1,)
+// and out (n, m): contiguous float32 device buffers. Launches as many
+// persistent blocks as the current device holds at once (at most one a
+// tile) on `stream` and returns cudaGetLastError().
 extern "C" int sober_rbf_gram(const float* x, const float* y, const float* ls,
                               const float* os, float* out, int n, int m, int d,
-                              void* stream) {
-  if (n <= 0 || m <= 0 || d < 1 || d > MAX_D || (n + BM - 1) / BM > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
-  const dim3 block(TX, TY);
-  const size_t smem = (size_t)(BM + BN) * d * sizeof(float);
-  rbf_gram_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      x, y, ls, os, out, n, m, d);
-  return (int)cudaGetLastError();
+                              int ls_stride, void* stream) {
+  return launch(x, y, ls, os, out, n, m, d, ls_stride, 0, stream);
+}
+
+// The same with the store design and probe chosen: variant = STORE + 4 *
+// PROBE (STORE 0 streaming stores, 1 write-back stores, 2 bulk row copies,
+// 3 TMA tensor stores; PROBE 0 the Gram, 1 no global stores, 2 no
+// distances and no exp). For tools/rbf_gram_bench.py.
+extern "C" int sober_rbf_gram_variant(const float* x, const float* y,
+                                      const float* ls, const float* os,
+                                      float* out, int n, int m, int d,
+                                      int ls_stride, int variant, void* stream) {
+  return launch(x, y, ls, os, out, n, m, d, ls_stride, variant, stream);
+}
+
+// Blocks an SM of `variant` at feature width d, or a negative CUDA error.
+// For tools/rbf_gram_bench.py.
+extern "C" int sober_rbf_gram_blocks(int d, int variant) {
+  if (d < 1 || variant < 0 || variant >= VARIANTS) return -(int)cudaErrorInvalidValue;
+  cudaError_t err;
+  int sms = 0, device = 0;
+  const int blocks = resident_blocks(variant, d < DK ? d : DK, &err);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return err == cudaSuccess ? blocks / sms : -(int)err;
 }

@@ -28,7 +28,7 @@ _I = ctypes.c_int
 # C signatures of the kernels' entry points: every pointer (and the stream)
 # is a c_void_p, or ctypes would pass it as a 32-bit int
 _SIGNATURES = {
-    "sober_rbf_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "sober_rbf_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "sober_car_eliminate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "sober_pack_bits": (_P, _P, _P, _P, _I, _I, _P),
     "sober_tanimoto_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),

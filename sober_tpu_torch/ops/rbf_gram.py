@@ -4,14 +4,13 @@
 On a CUDA tensor it launches the hand-written kernel of `csrc/rbf_gram.cu`
 or raises; on a CPU tensor it computes `rbf_gram_reference`, the plain
 PyTorch version (the norm-trick form of `sober_tpu/ops/kernels.py:rbf_gram`).
+Like the Pallas kernel, it takes any feature width d >= 1.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check, load_library
-
-MAX_D = 64   # csrc/rbf_gram.cu: MAX_D
 
 
 def sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -58,15 +57,14 @@ def rbf_gram(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             f"and {tuple(y.shape)}")
     n, d = x.shape
     m = y.shape[0]
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"rbf_gram: d={d} outside [1, {MAX_D}]")
+    if d < 1:
+        raise ValueError(f"rbf_gram: d={d}, need at least one feature")
     ls = params["lengthscale"]
     os_ = params["outputscale"]
     if ls.numel() not in (1, d) or os_.numel() != 1:
         raise ValueError(
             f"rbf_gram: lengthscale has {ls.numel()} entries for d={d}, "
             f"outputscale {os_.numel()}")
-    ls = ls.reshape(-1).expand(d).contiguous() if ls.numel() == 1 else ls
     for name, t in (("x", x), ("y", y), ("lengthscale", ls),
                     ("outputscale", os_)):
         _check_operand(name, t, x.device)
@@ -76,7 +74,8 @@ def rbf_gram(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     lib = load_library()
     rc = lib.sober_rbf_gram(
         x.data_ptr(), y.data_ptr(), ls.data_ptr(), os_.data_ptr(),
-        out.data_ptr(), n, m, d, torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), n, m, d, int(ls.numel() == d),
+        torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "rbf_gram")
     rbf_gram.launches += 1
     return out

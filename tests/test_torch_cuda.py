@@ -30,19 +30,33 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,d,ard", [(512, 65536, 10, False),
                                        (65536, 500, 10, True),
-                                       (70, 130, 3, True), (1, 1, 64, False)])
+                                       (70, 130, 3, True), (1, 1, 64, False),
+                                       (500, 200000, 4, False),
+                                       (200, 500, 10, False), (1, 500, 4, True),
+                                       (257, 130, 33, True), (65, 7, 100, False),
+                                       (130, 700, 100, True)])
 def test_rbf_kernel_matches_reference_on_card(cuda, n, m, d, ard):
     rng = np.random.default_rng(0)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
-    x, y = t(rng.uniform(-1, 1, (n, d))), t(rng.uniform(-1, 1, (m, d)))
+    # past 32 features, coordinates in [-0.3, 0.3]: entries stay far from 0
+    # and the reference's norm trick stays accurate to ~1e-7
+    scale = 1.0 if d <= 32 else 0.3
+    x = t(rng.uniform(-scale, scale, (n, d)))
+    y = t(rng.uniform(-scale, scale, (m, d)))
     ls = t(rng.uniform(0.5, 1.5, d)) if ard else t(0.8)
     p = {"lengthscale": ls, "outputscale": t(1.3)}
     before = rbf_gram.launches
     got = rbf_gram(p, x, y)
     torch.cuda.synchronize()
     assert rbf_gram.launches == before + 1
-    # direct differences against the reference's norm trick
+    # direct differences against the reference's norm trick; the kernel's
+    # ex2.approx.ftz gives 0 where the reference keeps a denormal, which is
+    # below 1.2e-38 apart
     assert float((got - rbf_gram_reference(p, x, y)).abs().max()) <= 1.3e-5
+    # and against float64 direct differences, on the first rows
+    xs, ys = x[:64].double() / ls.double(), y.double() / ls.double()
+    exact = 1.3 * torch.exp(-0.5 * ((xs[:, None] - ys[None]) ** 2).sum(-1))
+    assert float((got[:64].double() - exact).abs().max()) <= 1.3e-5
 
 
 @pytest.mark.cuda
@@ -57,6 +71,8 @@ def test_rbf_kernel_rejects_what_it_cannot_run(cuda):
         rbf_gram(p, x.double(), x.double())
     with pytest.raises(ValueError, match="contiguous"):
         rbf_gram(p, torch.zeros((3, 4), device=cuda).T, x)
+    with pytest.raises(ValueError, match="at least one feature"):
+        rbf_gram(p, torch.zeros((4, 0), device=cuda), torch.zeros((5, 0), device=cuda))
 
 
 def _car_problem(m, q, seed, device):

@@ -60,12 +60,17 @@ def test_gram_matches_jax(name, ard):
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("ard", [False, True])
-def test_rbf_reference_matches_pallas(ard):
+# d = 100 is past the first CUDA kernel's limit of 64 features, which the
+# Pallas kernel never had
+@pytest.mark.parametrize("ard,d", [(False, 5), (True, 5), (True, 3), (False, 100)],
+                         ids=["False", "True", "d3-True", "d100-False"])
+def test_rbf_reference_matches_pallas(ard, d):
     rng = np.random.default_rng(1)
-    x = rng.uniform(-1, 1, (50, 5)).astype(np.float32)
-    y = rng.uniform(-1, 1, (90, 5)).astype(np.float32)
-    ls = rng.uniform(0.5, 1.2, 5).astype(np.float32) if ard else np.float32(0.7)
+    x = rng.uniform(-1, 1, (50, d)).astype(np.float32)
+    y = rng.uniform(-1, 1, (90, d)).astype(np.float32)
+    if d == 100:                 # pairs close enough for entries far from 0
+        y[:20] = x[:20] + rng.normal(0, 0.05, (20, d)).astype(np.float32)
+    ls = rng.uniform(0.5, 1.2, d).astype(np.float32) if ard else np.float32(0.7)
     p = {"lengthscale": ls, "outputscale": np.float32(1.3)}
     want = np.asarray(rbf_gram_pallas(
         {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
