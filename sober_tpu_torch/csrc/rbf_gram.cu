@@ -12,33 +12,35 @@
 // enough that the two must overlap. A tensor-core product would buy nothing.
 //
 // What the design does about it:
-//  * Persistent blocks of 8 warps (2 an SM) walk 64 x 128 output tiles, as
-//    many blocks as the card holds at once and never more than the tiles, so
-//    the small Grams (<= 512 x 512, 32 tiles) keep one tile a block.
-//  * The operand rows of a tile (64 x rows, 128 y rows) are staged in
-//    passes of up to 32 features through two shared-memory buffers: while a
-//    pass computes, cp.async brings the next pass (of this tile or the next)
-//    into the other buffer, transposed to [k][row]. Any d runs; d <= 32 is
-//    one pass. Rows past n or m are zero-filled and never stored.
-//  * Each staged pass is multiplied in place by sqrt(0.5 log2 e) / ls[k], so
-//    the epilogue is one ex2.approx.ftz and one multiply by os an output
-//    (2^-r equals exp(-0.5 r') for the unfolded r'). Squared differences
-//    are summed directly (not by the norm trick of ops/kernels.py, whose
-//    cancellation grows with d). ex2.approx.ftz writes 0 where the result
-//    is below 2^-126 and the reference keeps a denormal (< 1.2e-38 apart).
+//  * Persistent blocks of 8 warps walk 64 x 128 output tiles, as many blocks
+//    as the card holds at once (3 an SM) and never more than the tiles, so
+//    the small Grams (<= 512 x 512, 32 tiles) keep one tile a block. Each
+//    block takes a contiguous run of tiles, columns fastest: a row of the
+//    Gram is written by one block in turn, so where rows are not whole
+//    128-byte lines (m = 500) the lines it shares between two tiles are
+//    completed in L2 while they are still there.
+//  * The operand rows of a tile (64 x rows, 128 y rows) are copied with
+//    cp.async in passes of up to 32 features: for d <= 32 the x and y rows
+//    of a tile are each one contiguous span, copied 16 bytes at a time.
+//    Each pass is then transposed to [k][row] in shared memory and scaled
+//    by sqrt(0.5 log2 e) / ls[k], and the next pass (of this tile or the
+//    next) is copied while this one computes. Any d runs; d <= 32 is one
+//    pass. Rows past n or m are zero-filled and never stored.
+//  * With the scale folded in, the epilogue is one ex2.approx.ftz and one
+//    multiply by os an output (2^-r equals exp(-0.5 r') for the unfolded
+//    r'). Squared differences are summed directly (not by the norm trick of
+//    ops/kernels.py, whose cancellation grows with d). ex2.approx.ftz writes
+//    0 where the result is below 2^-126 and the reference keeps a denormal
+//    (< 1.2e-38 apart).
 //  * A warp owns 8 output rows of a tile, a lane 4 consecutive columns, so
 //    the lane's 8 x 4 sums read one float4 of y and two broadcast float4s of
-//    x from shared memory a feature. The outputs leave in one of two ways
-//    (STORE, timed side by side by tools/rbf_gram_bench.py):
-//      kVec:  a 16-byte streaming store (st.global.cs.v4) a row from the
-//             lane's registers: a warp writes 512 contiguous bytes at once;
-//      kBulk: the warp stages its 8 rows in a double-buffered slice of
-//             shared memory and 8 lanes each hand one row to an
-//             asynchronous bulk copy (cp.async.bulk.global.shared::cta),
-//             which drains while the next tile computes.
-//    Where m is not a multiple of 4 (or out is not 16-byte aligned) the
-//    rows are not 16-byte aligned, and both write 4 bytes at a time.
-#include <cuda.h>
+//    x from shared memory a feature, and each output row leaves as one
+//    16-byte streaming store (st.global.cs.v4): a warp writes 512
+//    contiguous bytes at once, and the stores drain while the warp goes on.
+//    (Staging the tile in shared memory for a bulk copy a row, or for a TMA
+//    tensor store a warp, and write-back stores were slower; PERF.md, PR 5.)
+//    Where m is not a multiple of 4 the rows are not 16-byte aligned, and
+//    the outputs are written 4 bytes at a time.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -52,22 +54,23 @@ constexpr int BN = 128;                 // y rows a tile
 constexpr int RM = BM / WARPS;          // output rows a warp (and a lane)
 constexpr int RN = 4;                   // output columns a lane
 constexpr int BR = BM + BN;             // operand rows staged a tile
-constexpr int SB = BR + 4;              // floats a staged feature: the
-                                        // transposing copies spread over banks
+constexpr int SB = BR + 4;              // floats a transposed feature: the
+                                        // transposing stores spread over banks
 constexpr int DK = 32;                  // features staged a pass
-constexpr int MAX_BLOCKS_PER_SM = 2;
-constexpr int STAGE_FLOATS = WARPS * 2 * RM * BN;   // kRows, kTma: 64 KB
+constexpr int MAX_BLOCKS_PER_SM = 3;
 // sqrt(0.5 * log2(e)): scaled by it over ls, 2^-|x - y|^2 is the RBF
 constexpr float FOLD = 0.8493218002880191f;
 
-// kVec: st.global.cs.v4 from registers; kWb: st.global.v4; kRows: a
-// bulk copy a row from shared memory; kTma: a TMA tensor store a warp
-enum Store { kVec = 0, kWb = 1, kRows = 2, kTma = 3 };
-constexpr int STORES = 4;
 // Probes for tools/rbf_gram_bench.py: kNoStore computes every output and
 // writes none; kNoCompute stages the operands and writes os everywhere.
 enum Probe { kFull = 0, kNoStore = 1, kNoCompute = 2 };
-constexpr int VARIANTS = 3 * STORES;    // STORE + STORES * PROBE
+constexpr int PROBES = 3;
+
+// How a pass's operand rows are copied: kSpan, 16 bytes at a time over the
+// contiguous x and y rows of a tile (one pass, 16-byte aligned bases);
+// kChunks, 16 bytes at a time a row (d % 4 == 0, aligned bases); kWords,
+// 4 bytes at a time.
+enum Copy { kSpan = 0, kChunks = 1, kWords = 2 };
 
 struct Problem {
   const float* x;
@@ -75,52 +78,83 @@ struct Problem {
   const float* ls;
   const float* os;
   float* out;
-  int n, m, d, ls_stride, m_tiles, tiles, passes;
+  int n, m, d, ls_stride, m_tiles, tiles, passes, copy;
   bool vec;     // m % 4 == 0 and out 16-byte aligned
 };
 
-// Where a thread's cp.async elements of a pass start and how they step:
-// element e = tid + t * THREADS of a pass kw features wide is operand row
-// e / kw, feature e % kw; rows and features advance without a division.
+// Where a thread's elements of a [BR][w] array start and how they step:
+// element e = tid + t * THREADS is row e / w, column e % w; rows and
+// columns advance without a division.
 struct Walk {
-  int kw, r0, k0, dr, dk;
+  int w, r0, c0, dr, dc;
 };
 
-__device__ __forceinline__ Walk make_walk(int kw) {
-  const int r0 = threadIdx.x / kw, dr = THREADS / kw;
-  return {kw, r0, (int)threadIdx.x - r0 * kw, dr, THREADS - dr * kw};
+__device__ __forceinline__ Walk make_walk(int w) {
+  const int r0 = threadIdx.x / w, dr = THREADS / w;
+  return {w, r0, (int)threadIdx.x - r0 * w, dr, THREADS - dr * w};
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int bytes) {
+__device__ __forceinline__ void step(const Walk& w, int& r, int& c) {
+  r += w.dr;
+  c += w.dc;
+  if (c >= w.w) {
+    c -= w.w;
+    ++r;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
-// Stage step `seq` of this block's walk (pass seq % passes of its tile
-// number seq / passes) into buf as [k][row], unscaled. Commits one group,
-// empty past the last tile.
-__device__ __forceinline__ void load_step(const Problem& p, float* buf,
-                                          int seq, const Walk& full,
-                                          const Walk& last) {
-  const int q = seq / p.passes, c = seq - q * p.passes;
-  const int tile = blockIdx.x + q * gridDim.x;
-  if (tile < p.tiles) {
+// Copy the operand rows of step seq of a block whose run of tiles is
+// [first, end) (rows past n or m as zeros) into raw as [BR][kw], unscaled,
+// and the pass's scales into scale. Commits one group, empty past the run.
+__device__ __forceinline__ void load_step(const Problem& p, float* raw, float* scale,
+                                          int first, int end, int seq,
+                                          const Walk& full, const Walk& last) {
+  const int q = p.passes == 1 ? seq : seq / p.passes;
+  const int tile = first + q, pass = seq - q * p.passes;
+  if (tile < end) {
     const int i0 = (tile / p.m_tiles) * BM, j0 = (tile % p.m_tiles) * BN;
-    const Walk& w = c == p.passes - 1 ? last : full;
-    const int k0 = c * DK;
-    const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(buf));
-    for (int r = w.r0, k = w.k0; r < BR;) {
-      const bool is_x = r < BM;
-      const int row = is_x ? i0 + r : j0 + r - BM;
-      const bool ok = row < (is_x ? p.n : p.m);
-      const float* src = ok ? (is_x ? p.x : p.y) + (size_t)row * p.d + k0 + k : p.x;
-      cp_async4(base + 4u * (k * SB + r), src, ok ? 4 : 0);
-      r += w.dr;
-      k += w.dk;
-      if (k >= w.kw) {
-        k -= w.kw;
-        ++r;
+    const int k0 = pass * DK;
+    const int kw = pass == p.passes - 1 ? last.w : full.w;
+    if (threadIdx.x < kw)
+      scale[threadIdx.x] = FOLD / p.ls[(size_t)(k0 + threadIdx.x) * p.ls_stride];
+    const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+    if (p.copy == kSpan) {
+      // x rows i0.. and y rows j0.. are spans of BM d and BN d floats; raw
+      // holds them back to back
+      const int xn = (p.n - i0 < BM ? p.n - i0 : BM) * p.d;
+      const int yn = (p.m - j0 < BN ? p.m - j0 : BN) * p.d;
+      const float* xg = p.x + (size_t)i0 * p.d;
+      const float* yg = p.y + (size_t)j0 * p.d;
+      for (int e = 4 * threadIdx.x; e < BR * p.d; e += 4 * THREADS) {
+        const bool is_x = e < BM * p.d;
+        const int o = is_x ? e : e - BM * p.d;     // offset in its span
+        const int left = (is_x ? xn : yn) - o;
+        const int bytes = left >= 4 ? 16 : left > 0 ? 4 * left : 0;
+        cp_async16(base + 4u * e, bytes ? (is_x ? xg : yg) + o : p.x, bytes);
+      }
+    } else {
+      const int u = p.copy == kChunks ? 4 : 1;     // floats a copy
+      const Walk cw = make_walk(kw / u);
+      for (int r = cw.r0, c = cw.c0; r < BR; step(cw, r, c)) {
+        const bool is_x = r < BM;
+        const int row = is_x ? i0 + r : j0 + r - BM;
+        const bool ok = row < (is_x ? p.n : p.m);
+        const float* src = ok ? (is_x ? p.x : p.y) + (size_t)row * p.d + k0 + u * c : p.x;
+        const uint32_t dst = base + 4u * (r * kw + u * c);
+        if (u == 4)
+          cp_async16(dst, src, ok ? 16 : 0);
+        else
+          cp_async4(dst, src, ok ? 4 : 0);
       }
     }
   }
@@ -133,31 +167,6 @@ __device__ __forceinline__ float ex2(float a) {
   return r;
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_store(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-      :: "l"(dst), "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))),
-         "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// rows [row, row + RM) x columns [col, col + BN) of out from src ([RM][BN]);
-// the tensor map clips what lies past n or m
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const float* src,
-                                          int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))), "r"(col), "r"(row)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
 // 4 bytes at a time, for rows that are not 16-byte aligned and ragged ends
 __device__ __forceinline__ void store_scalar(float* o, const float4& v, int left) {
   if (left > 0) __stcs(o, v.x);
@@ -166,28 +175,25 @@ __device__ __forceinline__ void store_scalar(float* o, const float4& v, int left
   if (left > 3) __stcs(o + 3, v.w);
 }
 
-// floats of the two operand buffers, rounded up to 128 bytes
-__host__ __device__ __forceinline__ int operand_floats(int dk) {
-  return (2 * dk * SB + 31) / 32 * 32;
-}
-
-template <int STORE, int PROBE>
+template <int PROBE>
 __global__ void __launch_bounds__(THREADS, MAX_BLOCKS_PER_SM)
-rbf_gram_kernel(const Problem p, const __grid_constant__ CUtensorMap map) {
-  extern __shared__ __align__(128) float smem[];
+rbf_gram_kernel(const Problem p) {
+  extern __shared__ __align__(16) float smem[];
   const int dk_max = p.d < DK ? p.d : DK;
-  float* stage = smem + operand_floats(dk_max);   // kRows and kTma
+  float* raw = smem;                          // [BR][kw], as copied
+  float* sb = raw + BR * dk_max;              // [kw][SB], scaled
+  float* scales = sb + dk_max * SB;           // [2][DK], by step parity
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Walk full = make_walk(DK);
   const Walk last = make_walk(p.d - (p.passes - 1) * DK);
-  const float scale = *p.os;
-  (void)stage;
+  const float os = *p.os;
+  // this block's run of tiles
+  const int first = (int)((long long)blockIdx.x * p.tiles / gridDim.x);
+  const int end = (int)((long long)(blockIdx.x + 1) * p.tiles / gridDim.x);
 
   int seq = 0;
-  load_step(p, smem, 0, full, last);
-  for (int q = 0;; ++q) {
-    const int tile = blockIdx.x + q * gridDim.x;
-    if (tile >= p.tiles) break;
+  load_step(p, raw, scales, first, end, 0, full, last);
+  for (int tile = first; tile < end; ++tile) {
     const int i0 = (tile / p.m_tiles) * BM, j0 = (tile % p.m_tiles) * BN;
     float acc[RM][RN];
 #pragma unroll
@@ -195,18 +201,16 @@ rbf_gram_kernel(const Problem p, const __grid_constant__ CUtensorMap map) {
 #pragma unroll
       for (int c = 0; c < RN; ++c) acc[r][c] = 0.f;
 
-    for (int c = 0; c < p.passes; ++c, ++seq) {
+    for (int pass = 0; pass < p.passes; ++pass, ++seq) {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      __syncthreads();   // step seq landed for all; step seq - 1 is consumed
-      load_step(p, smem + ((seq + 1) & 1) * dk_max * SB, seq + 1, full, last);
-      float* sb = smem + (seq & 1) * dk_max * SB;
-      const int k0 = c * DK;
-      const int kw = c == p.passes - 1 ? last.kw : DK;
-      for (int k = warp; k < kw; k += WARPS) {
-        const float s = FOLD / p.ls[(size_t)(k0 + k) * p.ls_stride];
-        for (int r = lane; r < BR; r += 32) sb[k * SB + r] *= s;
-      }
-      __syncthreads();
+      __syncthreads();   // step seq landed for all; step seq - 1 is computed
+      const Walk& w = pass == p.passes - 1 ? last : full;
+      const int kw = w.w;
+      const float* scale = scales + (seq & 1) * DK;
+      for (int r = w.r0, k = w.c0; r < BR; step(w, r, k))
+        sb[k * SB + r] = raw[r * kw + k] * scale[k];
+      __syncthreads();   // sb is ready and raw is free
+      load_step(p, raw, scales + ((seq + 1) & 1) * DK, first, end, seq + 1, full, last);
       if (PROBE == kNoCompute) continue;
 #pragma unroll 2
       for (int k = 0; k < kw; ++k) {
@@ -219,9 +223,9 @@ rbf_gram_kernel(const Problem p, const __grid_constant__ CUtensorMap map) {
 #pragma unroll
         for (int r = 0; r < RM; ++r)
 #pragma unroll
-          for (int cc = 0; cc < RN; ++cc) {
-            const float t = xs[r] - ys[cc];
-            acc[r][cc] = fmaf(-t, t, acc[r][cc]);
+          for (int c = 0; c < RN; ++c) {
+            const float t = xs[r] - ys[c];
+            acc[r][c] = fmaf(-t, t, acc[r][c]);
           }
       }
     }
@@ -230,9 +234,9 @@ rbf_gram_kernel(const Problem p, const __grid_constant__ CUtensorMap map) {
 #pragma unroll
     for (int r = 0; r < RM; ++r)
       v[r] = PROBE == kNoCompute
-                 ? make_float4(scale, scale, scale, scale)
-                 : make_float4(scale * ex2(acc[r][0]), scale * ex2(acc[r][1]),
-                               scale * ex2(acc[r][2]), scale * ex2(acc[r][3]));
+                 ? make_float4(os, os, os, os)
+                 : make_float4(os * ex2(acc[r][0]), os * ex2(acc[r][1]),
+                               os * ex2(acc[r][2]), os * ex2(acc[r][3]));
     if (PROBE == kNoStore) {
       // keep every output live without writing it
       float sink = 0.f;
@@ -242,166 +246,77 @@ rbf_gram_kernel(const Problem p, const __grid_constant__ CUtensorMap map) {
       continue;
     }
     const int j = j0 + RN * lane;
-    if (STORE == kTma && p.vec) {
-      float* sbuf = stage + (warp * 2 + (q & 1)) * RM * BN;
-      if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      __syncwarp();      // the store of tile q - 2 has read this slice
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-        *reinterpret_cast<float4*>(sbuf + r * BN + RN * lane) = v[r];
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) {
-        if (i0 + RM * warp < p.n)
-          tma_store(&map, sbuf, j0, i0 + RM * warp);
-        else
-          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      }
-      continue;
-    }
-    if (STORE == kRows && p.vec) {
-      float* sbuf = stage + (warp * 2 + (q & 1)) * RM * BN;
-      if (lane < RM) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      __syncwarp();      // the copies of tile q - 2 have read this slice
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-        *reinterpret_cast<float4*>(sbuf + r * BN + RN * lane) = v[r];
-      fence_proxy_async();
-      __syncwarp();
-      const int i = i0 + RM * warp + lane;
-      if (lane < RM) {
-        if (i < p.n) {
-          const int cols = p.m - j0 < BN ? p.m - j0 : BN;
-          bulk_store(p.out + (size_t)i * p.m + j0, sbuf + lane * BN, 4 * cols);
-        } else {
-          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        }
-      }
-      continue;
-    }
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
       const int i = i0 + RM * warp + r;
       if (i >= p.n || j >= p.m) continue;
       float* o = p.out + (size_t)i * p.m + j;
-      if (p.vec && STORE == kWb)
-        *reinterpret_cast<float4*>(o) = v[r];
-      else if (p.vec)
+      if (p.vec)
         __stcs(reinterpret_cast<float4*>(o), v[r]);
       else
         store_scalar(o, v[r], p.m - j);
     }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  if ((STORE == kRows && lane < RM) || (STORE == kTma && lane == 0))
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-typedef void (*KernelFn)(const Problem, const CUtensorMap);
+typedef void (*KernelFn)(const Problem);
 
-template <int PROBE>
-KernelFn kernel_of_store(int store) {
-  switch (store) {
-    case kVec: return rbf_gram_kernel<kVec, PROBE>;
-    case kWb: return rbf_gram_kernel<kWb, PROBE>;
-    case kRows: return rbf_gram_kernel<kRows, PROBE>;
-    default: return rbf_gram_kernel<kTma, PROBE>;
-  }
+KernelFn kernel_of(int probe) {
+  return probe == kFull ? rbf_gram_kernel<kFull>
+         : probe == kNoStore ? rbf_gram_kernel<kNoStore>
+                             : rbf_gram_kernel<kNoCompute>;
 }
 
-KernelFn kernel_of(int variant) {
-  const int store = variant % STORES, probe = variant / STORES;
-  return probe == kFull ? kernel_of_store<kFull>(store)
-         : probe == kNoStore ? kernel_of_store<kNoStore>(store)
-                             : kernel_of_store<kNoCompute>(store);
+size_t smem_bytes(int dk) {
+  return sizeof(float) * ((size_t)dk * (BR + SB) + 2 * DK);
 }
 
-size_t smem_bytes(int variant, int dk) {
-  const int store = variant % STORES;
-  return sizeof(float) *
-         (operand_floats(dk) + (store == kRows || store == kTma ? STAGE_FLOATS : 0));
-}
-
-// Blocks of `variant` at dk staged features that the device holds at once
+// Blocks of `probe` at dk staged features that the device holds at once
 // (SMs x blocks an SM), found at the first launch of each on each device,
 // or 0 with *err set.
-int resident_blocks(int variant, int dk, cudaError_t* err) {
-  static int cache[64][VARIANTS][DK + 1];
+int resident_blocks(int probe, int dk, cudaError_t* err) {
+  static int cache[64][PROBES][DK + 1];
   int device = 0;
   *err = cudaGetDevice(&device);
   if (*err != cudaSuccess) return 0;
-  if (device < 64 && cache[device][variant][dk] > 0) return cache[device][variant][dk];
-  const KernelFn fn = kernel_of(variant);
+  if (device < 64 && cache[device][probe][dk] > 0) return cache[device][probe][dk];
+  const KernelFn fn = kernel_of(probe);
   int sms = 0, per_sm = 0;
   *err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(variant, DK));
+                              (int)smem_bytes(DK));
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (*err == cudaSuccess)
     *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
-                                                         smem_bytes(variant, dk));
+                                                         smem_bytes(dk));
   if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
   if (*err != cudaSuccess) return 0;
-  if (device < 64) cache[device][variant][dk] = sms * per_sm;
+  if (device < 64) cache[device][probe][dk] = sms * per_sm;
   return sms * per_sm;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (the library
-// links no libcuda), or null with *err set.
-EncodeTiled encode_tiled(cudaError_t* err) {
-  static EncodeTiled fn = nullptr;
-  *err = cudaSuccess;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    *err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                            cudaEnableDefault, &found);
-    if (*err == cudaSuccess && found != cudaDriverEntryPointSuccess)
-      *err = cudaErrorSymbolNotFound;
-    if (*err == cudaSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 int launch(const float* x, const float* y, const float* ls, const float* os,
-           float* out, int n, int m, int d, int ls_stride, int variant,
-           void* stream) {
-  if (n <= 0 || m <= 0 || d < 1 || ls_stride < 0 || variant < 0 ||
-      variant >= VARIANTS)
+           float* out, int n, int m, int d, int ls_stride, int probe, void* stream) {
+  if (n <= 0 || m <= 0 || d < 1 || ls_stride < 0 || probe < 0 || probe >= PROBES)
     return (int)cudaErrorInvalidValue;
   const long long m_tiles = (m + BN - 1) / BN;
   const long long tiles = ((n + BM - 1LL) / BM) * m_tiles;
   const long long passes = (d + DK - 1) / DK;
-  if ((tiles + 1) * passes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (tiles * passes + 1 > 0x7fffffffLL || (long long)BR * d > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const int dk = d < DK ? d : DK;
   cudaError_t err;
-  const long long resident = resident_blocks(variant, dk, &err);
+  const long long resident = resident_blocks(probe, dk, &err);
   if (err != cudaSuccess) return (int)err;
+  const bool aligned =
+      ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y)) & 15) == 0;
+  const int copy = aligned && passes == 1 ? kSpan : aligned && d % 4 == 0 ? kChunks : kWords;
   const Problem p{x, y, ls, os, out, n, m, d, ls_stride, (int)m_tiles, (int)tiles,
-                  (int)passes,
+                  (int)passes, copy,
                   (m & 3) == 0 && (reinterpret_cast<size_t>(out) & 15) == 0};
-  CUtensorMap map = {};
-  if (variant % STORES == kTma && p.vec) {
-    const EncodeTiled encode = encode_tiled(&err);
-    if (err != cudaSuccess) return (int)err;
-    const cuuint64_t dims[2] = {(cuuint64_t)m, (cuuint64_t)n};
-    const cuuint64_t strides[1] = {(cuuint64_t)m * sizeof(float)};
-    const cuuint32_t box[2] = {BN, RM}, unit[2] = {1, 1};
-    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out, dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_NONE,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-  }
   const long long grid = tiles < resident ? tiles : resident;
-  kernel_of(variant)<<<(unsigned)grid, THREADS, smem_bytes(variant, dk),
-                       (cudaStream_t)stream>>>(p, map);
+  kernel_of(probe)<<<(unsigned)grid, THREADS, smem_bytes(dk), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -414,29 +329,13 @@ int launch(const float* x, const float* y, const float* ls, const float* os,
 extern "C" int sober_rbf_gram(const float* x, const float* y, const float* ls,
                               const float* os, float* out, int n, int m, int d,
                               int ls_stride, void* stream) {
-  return launch(x, y, ls, os, out, n, m, d, ls_stride, 0, stream);
+  return launch(x, y, ls, os, out, n, m, d, ls_stride, kFull, stream);
 }
 
-// The same with the store design and probe chosen: variant = STORE + 4 *
-// PROBE (STORE 0 streaming stores, 1 write-back stores, 2 bulk row copies,
-// 3 TMA tensor stores; PROBE 0 the Gram, 1 no global stores, 2 no
-// distances and no exp). For tools/rbf_gram_bench.py.
-extern "C" int sober_rbf_gram_variant(const float* x, const float* y,
-                                      const float* ls, const float* os,
-                                      float* out, int n, int m, int d,
-                                      int ls_stride, int variant, void* stream) {
-  return launch(x, y, ls, os, out, n, m, d, ls_stride, variant, stream);
-}
-
-// Blocks an SM of `variant` at feature width d, or a negative CUDA error.
-// For tools/rbf_gram_bench.py.
-extern "C" int sober_rbf_gram_blocks(int d, int variant) {
-  if (d < 1 || variant < 0 || variant >= VARIANTS) return -(int)cudaErrorInvalidValue;
-  cudaError_t err;
-  int sms = 0, device = 0;
-  const int blocks = resident_blocks(variant, d < DK ? d : DK, &err);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  return err == cudaSuccess ? blocks / sms : -(int)err;
+// The same with a probe: 0 the Gram, 1 no global stores, 2 no distances and
+// no exp. For tools/rbf_gram_bench.py.
+extern "C" int sober_rbf_gram_probe(const float* x, const float* y, const float* ls,
+                                    const float* os, float* out, int n, int m, int d,
+                                    int ls_stride, int probe, void* stream) {
+  return launch(x, y, ls, os, out, n, m, d, ls_stride, probe, stream);
 }

@@ -60,6 +60,22 @@ def test_rbf_kernel_matches_reference_on_card(cuda, n, m, d, ard):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 4, 40])
+def test_rbf_kernel_takes_rows_off_16_byte_boundaries(cuda, d):
+    """Operands that start one float into their storage: bases that are not
+    16-byte aligned are copied 4 bytes at a time."""
+    rng = np.random.default_rng(d)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    x = t(rng.uniform(-0.5, 0.5, 300 * d + 1))[1:].view(300, d)
+    y = t(rng.uniform(-0.5, 0.5, 128 * d + 1))[1:].view(128, d)
+    assert x.data_ptr() % 16 and y.data_ptr() % 16
+    p = {"lengthscale": t(rng.uniform(0.5, 1.5, d)), "outputscale": t(0.7)}
+    got = rbf_gram(p, x, y)
+    torch.cuda.synchronize()
+    assert float((got - rbf_gram_reference(p, x, y)).abs().max()) <= 1.3e-5
+
+
+@pytest.mark.cuda
 def test_rbf_kernel_rejects_what_it_cannot_run(cuda):
     x = torch.zeros((4, 3), device=cuda)
     p = {"lengthscale": torch.tensor(1.0, device=cuda),

@@ -5,9 +5,10 @@ one CUDA device.
 
 For each shape, on uniform random operands with a scalar lengthscale: the
 Gram of `sober_tpu_torch/csrc/rbf_gram.cu` held to `rbf_gram_reference`,
-its other store design and its probes (`sober_rbf_gram_variant`: the
-outputs computed but not written, or written without the distances and
-the exp); with --parent, the Gram of another checkout of the repository
+and its two probes (`sober_rbf_gram_probe`: the outputs computed but not
+written, or written without the distances and the exp), which split its
+time between the arithmetic and the stores; with --parent, the Gram of
+another checkout of the repository
 (built from that checkout's own csrc) on the same inputs, e.g. the parent
 commit's; the plain reference; and `torch.empty((n, m)).fill_(1.0)`, a
 yardstick of the card's write rate. Every variant is timed twice, in the
@@ -38,10 +39,8 @@ from sober_tpu_torch.ops.rbf_gram import rbf_gram_reference  # noqa: E402
 SHAPES = ((512, 65_536, 10), (65_536, 500, 10), (500, 65_536, 10),
           (200_000, 500, 4), (500, 200_000, 4), (500, 500, 10),
           (512, 65_536, 100))
-# sober_rbf_gram_variant's variants: the store design + 4 * the probe
-STORES = ("vec", "wb", "rows", "tma")
-VARIANTS = {f"{store}{probe}": s + 4 * p for p, probe in
-            enumerate(("", "_no_store", "_no_compute")) for s, store in enumerate(STORES)}
+# sober_rbf_gram_probe's probes
+PROBES = {"no_store": 1, "no_compute": 2}
 
 
 def parent_library(path: Path):
@@ -82,16 +81,12 @@ def main() -> None:
     lines = log.splitlines()
     print("\n".join(lines[k + 1] + " " + lines[k + 2] for k, line in enumerate(lines)
                     if "Compiling entry" in line and "rbf_gram" in line), flush=True)
-    variant_fn = lib.sober_rbf_gram_variant
-    variant_fn.argtypes = _build._SIGNATURES["sober_rbf_gram"][:-1] + (
+    probe_fn = lib.sober_rbf_gram_probe
+    probe_fn.argtypes = _build._SIGNATURES["sober_rbf_gram"][:-1] + (
         ctypes.c_int, ctypes.c_void_p)
-    variant_fn.restype = ctypes.c_int
-    lib.sober_rbf_gram_blocks.argtypes = (ctypes.c_int, ctypes.c_int)
-    print(json.dumps({"blocks_per_sm": {
-        d: {name: lib.sober_rbf_gram_blocks(d, v) for name, v in VARIANTS.items()}
-        for d in sorted({d for _, _, d in SHAPES})}}), flush=True)
+    probe_fn.restype = ctypes.c_int
     calls = {"gram": (lib.sober_rbf_gram, ())}
-    calls.update({name: (variant_fn, (v,)) for name, v in VARIANTS.items()})
+    calls.update({name: (probe_fn, (v,)) for name, v in PROBES.items()})
     if args.parent is not None:
         calls["parent"] = (parent_library(args.parent).sober_rbf_gram, ())
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -111,7 +106,7 @@ def main() -> None:
                                    params["outputscale"], out, *extra)
             runs[name]()
             torch.cuda.synchronize()
-            if "_no_" not in name:
+            if name not in PROBES:
                 row[f"{name}_max_abs_err"] = float((out - want).abs().max())
         for name in list(runs) + list(reversed(runs)):
             row.setdefault(f"{name}_ms", []).append(cuda_ms(runs[name], reps=20))
