@@ -49,14 +49,11 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int BM = 64;                  // x rows a tile
-constexpr int BN = 128;                 // y rows a tile
-constexpr int RM = BM / WARPS;          // output rows a warp (and a lane)
+constexpr int RM = 8;                   // output rows a warp (and a lane)
 constexpr int RN = 4;                   // output columns a lane
-constexpr int BR = BM + BN;             // operand rows staged a tile
-constexpr int SB = BR + 4;              // floats a transposed feature: the
-                                        // transposing stores spread over banks
+constexpr int GN = 32 * RN;             // columns a warp: a column group
 constexpr int DK = 32;                  // features staged a pass
+constexpr int MAX_CG = 4;               // column groups a tile
 constexpr int MAX_BLOCKS_PER_SM = 3;
 // sqrt(0.5 * log2(e)): scaled by it over ls, 2^-|x - y|^2 is the RBF
 constexpr float FOLD = 0.8493218002880191f;
@@ -71,6 +68,9 @@ constexpr int PROBES = 3;
 // kChunks, 16 bytes at a time a row (d % 4 == 0, aligned bases); kWords,
 // 4 bytes at a time.
 enum Copy { kSpan = 0, kChunks = 1, kWords = 2 };
+// Which tiles a block takes: kStrided, tiles b, b + grid, ...; kRun, a
+// contiguous run of tiles.
+enum Order { kStrided = 0, kRun = 1 };
 
 struct Problem {
   const float* x;
@@ -78,11 +78,12 @@ struct Problem {
   const float* ls;
   const float* os;
   float* out;
-  int n, m, d, ls_stride, m_tiles, tiles, passes, copy;
-  bool vec;     // m % 4 == 0 and out 16-byte aligned
+  int n, m, d, ls_stride, m_tiles, tiles, passes, copy, order;
+  int cg, tr, tc, br, sb;   // column groups, x rows, y rows, both, stride of sb
+  bool vec;                 // m % 4 == 0 and out 16-byte aligned
 };
 
-// Where a thread's elements of a [BR][w] array start and how they step:
+// Where a thread's elements of a [rows][w] array start and how they step:
 // element e = tid + t * THREADS is row e / w, column e % w; rows and
 // columns advance without a division.
 struct Walk {
@@ -113,52 +114,84 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int byt
                :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
-// Copy the operand rows of step seq of a block whose run of tiles is
-// [first, end) (rows past n or m as zeros) into raw as [BR][kw], unscaled,
-// and the pass's scales into scale. Commits one group, empty past the run.
-__device__ __forceinline__ void load_step(const Problem& p, float* raw, float* scale,
-                                          int first, int end, int seq,
-                                          const Walk& full, const Walk& last) {
+// A block's q-th tile, or -1 past its last. A run is [first, end).
+__device__ __forceinline__ int tile_of(const Problem& p, int first, int end, int q) {
+  const int t = p.order == kRun ? first + q : blockIdx.x + q * gridDim.x;
+  return t < (p.order == kRun ? end : p.tiles) ? t : -1;
+}
+
+// What step seq stages: its tile, its pass, and whether its x rows and its
+// y rows must be staged (with one pass, not when the previous tile of the
+// block had the same ones: they are still in sb).
+struct Stage {
+  int tile, pass;
+  bool x, y;
+};
+
+__device__ __forceinline__ Stage stage_of(const Problem& p, int first, int end, int seq) {
   const int q = p.passes == 1 ? seq : seq / p.passes;
-  const int tile = first + q, pass = seq - q * p.passes;
-  if (tile < end) {
-    const int i0 = (tile / p.m_tiles) * BM, j0 = (tile % p.m_tiles) * BN;
-    const int k0 = pass * DK;
-    const int kw = pass == p.passes - 1 ? last.w : full.w;
+  const int tile = tile_of(p, first, end, q), pass = seq - q * p.passes;
+  if (p.passes > 1 || q == 0 || tile < 0) return {tile, pass, true, true};
+  const int prev = tile_of(p, first, end, q - 1);
+  return {tile, pass, prev / p.m_tiles != tile / p.m_tiles,
+          prev % p.m_tiles != tile % p.m_tiles};
+}
+
+// Copy rows [r0, r0 + rows) of a (count, d) operand, features [k0, k0 +
+// kw), into raw rows [at, at + rows) of [*][kw] (rows past count as zeros).
+__device__ __forceinline__ void copy_rows(const Problem& p, uint32_t raw, const float* g,
+                                          int count, int r0, int rows, int at, int k0,
+                                          int kw) {
+  if (p.copy == kSpan) {
+    // one pass: the rows are one span of rows d floats
+    const int valid = (count - r0 < rows ? count - r0 : rows) * p.d;
+    const float* span = g + (size_t)r0 * p.d;
+    for (int e = 4 * threadIdx.x; e < rows * p.d; e += 4 * THREADS) {
+      const int left = valid - e;
+      const int bytes = left >= 4 ? 16 : left > 0 ? 4 * left : 0;
+      cp_async16(raw + 4u * (at * p.d + e), bytes ? span + e : p.x, bytes);
+    }
+  } else {
+    const int u = p.copy == kChunks ? 4 : 1;       // floats a copy
+    const Walk cw = make_walk(kw / u);
+    for (int r = cw.r0, c = cw.c0; r < rows; step(cw, r, c)) {
+      const bool ok = r0 + r < count;
+      const float* src = ok ? g + (size_t)(r0 + r) * p.d + k0 + u * c : p.x;
+      const uint32_t dst = raw + 4u * ((at + r) * kw + u * c);
+      if (u == 4)
+        cp_async16(dst, src, ok ? 16 : 0);
+      else
+        cp_async4(dst, src, ok ? 4 : 0);
+    }
+  }
+}
+
+// Copy what step seq stages into raw as [br][kw], unscaled, and the pass's
+// scales into scale. Commits one group, empty past the block's last tile.
+// Returns what it staged.
+__device__ __forceinline__ Stage load_step(const Problem& p, float* raw, float* scale,
+                                           int first, int end, int seq,
+                                           const Walk& full, const Walk& last) {
+  const Stage s = stage_of(p, first, end, seq);
+  if (s.tile >= 0) {
+    const int i0 = (s.tile / p.m_tiles) * p.tr, j0 = (s.tile % p.m_tiles) * p.tc;
+    const int k0 = s.pass * DK;
+    const int kw = s.pass == p.passes - 1 ? last.w : full.w;
     if (threadIdx.x < kw)
       scale[threadIdx.x] = FOLD / p.ls[(size_t)(k0 + threadIdx.x) * p.ls_stride];
     const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-    if (p.copy == kSpan) {
-      // x rows i0.. and y rows j0.. are spans of BM d and BN d floats; raw
-      // holds them back to back
-      const int xn = (p.n - i0 < BM ? p.n - i0 : BM) * p.d;
-      const int yn = (p.m - j0 < BN ? p.m - j0 : BN) * p.d;
-      const float* xg = p.x + (size_t)i0 * p.d;
-      const float* yg = p.y + (size_t)j0 * p.d;
-      for (int e = 4 * threadIdx.x; e < BR * p.d; e += 4 * THREADS) {
-        const bool is_x = e < BM * p.d;
-        const int o = is_x ? e : e - BM * p.d;     // offset in its span
-        const int left = (is_x ? xn : yn) - o;
-        const int bytes = left >= 4 ? 16 : left > 0 ? 4 * left : 0;
-        cp_async16(base + 4u * e, bytes ? (is_x ? xg : yg) + o : p.x, bytes);
-      }
-    } else {
-      const int u = p.copy == kChunks ? 4 : 1;     // floats a copy
-      const Walk cw = make_walk(kw / u);
-      for (int r = cw.r0, c = cw.c0; r < BR; step(cw, r, c)) {
-        const bool is_x = r < BM;
-        const int row = is_x ? i0 + r : j0 + r - BM;
-        const bool ok = row < (is_x ? p.n : p.m);
-        const float* src = ok ? (is_x ? p.x : p.y) + (size_t)row * p.d + k0 + u * c : p.x;
-        const uint32_t dst = base + 4u * (r * kw + u * c);
-        if (u == 4)
-          cp_async16(dst, src, ok ? 16 : 0);
-        else
-          cp_async4(dst, src, ok ? 4 : 0);
-      }
-    }
+    if (s.x) copy_rows(p, base, p.x, p.n, i0, p.tr, 0, k0, kw);
+    if (s.y) copy_rows(p, base, p.y, p.m, j0, p.tc, p.tr, k0, kw);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return s;
+}
+
+// raw rows [r_lo, r_hi) of [*][w.w] into sb as [k][row], scaled
+__device__ __forceinline__ void transpose(const Walk& w, const float* raw, float* sb,
+                                          int sbs, const float* scale, int r_lo, int r_hi) {
+  for (int r = r_lo + w.r0, k = w.c0; r < r_hi; step(w, r, k))
+    sb[k * sbs + r] = raw[r * w.w + k] * scale[k];
 }
 
 __device__ __forceinline__ float ex2(float a) {
@@ -180,21 +213,24 @@ __global__ void __launch_bounds__(THREADS, MAX_BLOCKS_PER_SM)
 rbf_gram_kernel(const Problem p) {
   extern __shared__ __align__(16) float smem[];
   const int dk_max = p.d < DK ? p.d : DK;
-  float* raw = smem;                          // [BR][kw], as copied
-  float* sb = raw + BR * dk_max;              // [kw][SB], scaled
-  float* scales = sb + dk_max * SB;           // [2][DK], by step parity
+  float* raw = smem;                          // [br][kw], as copied
+  float* sb = raw + p.br * dk_max;            // [kw][sb], scaled
+  float* scales = sb + dk_max * p.sb;         // [2][DK], by step parity
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // warp w owns rows RM (w / cg) .. of the tile and columns GN (w % cg) ..
+  const int wr = RM * (warp / p.cg), wc = GN * (warp % p.cg) + RN * lane;
   const Walk full = make_walk(DK);
   const Walk last = make_walk(p.d - (p.passes - 1) * DK);
   const float os = *p.os;
-  // this block's run of tiles
   const int first = (int)((long long)blockIdx.x * p.tiles / gridDim.x);
   const int end = (int)((long long)(blockIdx.x + 1) * p.tiles / gridDim.x);
 
   int seq = 0;
-  load_step(p, raw, scales, first, end, 0, full, last);
-  for (int tile = first; tile < end; ++tile) {
-    const int i0 = (tile / p.m_tiles) * BM, j0 = (tile % p.m_tiles) * BN;
+  Stage staged = load_step(p, raw, scales, first, end, 0, full, last);
+  for (int q = 0;; ++q) {
+    const int tile = tile_of(p, first, end, q);
+    if (tile < 0) break;
+    const int i0 = (tile / p.m_tiles) * p.tr, j0 = (tile % p.m_tiles) * p.tc;
     float acc[RM][RN];
 #pragma unroll
     for (int r = 0; r < RM; ++r)
@@ -205,19 +241,19 @@ rbf_gram_kernel(const Problem p) {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       __syncthreads();   // step seq landed for all; step seq - 1 is computed
       const Walk& w = pass == p.passes - 1 ? last : full;
-      const int kw = w.w;
       const float* scale = scales + (seq & 1) * DK;
-      for (int r = w.r0, k = w.c0; r < BR; step(w, r, k))
-        sb[k * SB + r] = raw[r * kw + k] * scale[k];
+      transpose(w, raw, sb, p.sb, scale, staged.x ? 0 : p.tr, staged.y ? p.br : p.tr);
       __syncthreads();   // sb is ready and raw is free
-      load_step(p, raw, scales + ((seq + 1) & 1) * DK, first, end, seq + 1, full, last);
+      staged = load_step(p, raw, scales + ((seq + 1) & 1) * DK, first, end, seq + 1,
+                         full, last);
       if (PROBE == kNoCompute) continue;
+      const int kw = w.w;
 #pragma unroll 2
       for (int k = 0; k < kw; ++k) {
-        const float* row = sb + k * SB;
-        const float4 xa = *reinterpret_cast<const float4*>(row + RM * warp);
-        const float4 xb = *reinterpret_cast<const float4*>(row + RM * warp + 4);
-        const float4 yv = *reinterpret_cast<const float4*>(row + BM + RN * lane);
+        const float* row = sb + k * p.sb;
+        const float4 xa = *reinterpret_cast<const float4*>(row + wr);
+        const float4 xb = *reinterpret_cast<const float4*>(row + wr + 4);
+        const float4 yv = *reinterpret_cast<const float4*>(row + p.tr + wc);
         const float xs[RM] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
         const float ys[RN] = {yv.x, yv.y, yv.z, yv.w};
 #pragma unroll
@@ -245,10 +281,10 @@ rbf_gram_kernel(const Problem p) {
       if (sink == -1.f) p.out[0] = sink;
       continue;
     }
-    const int j = j0 + RN * lane;
+    const int j = j0 + wc;
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
-      const int i = i0 + RM * warp + r;
+      const int i = i0 + wr + r;
       if (i >= p.n || j >= p.m) continue;
       float* o = p.out + (size_t)i * p.m + j;
       if (p.vec)
@@ -268,55 +304,64 @@ KernelFn kernel_of(int probe) {
                              : rbf_gram_kernel<kNoCompute>;
 }
 
-size_t smem_bytes(int dk) {
-  return sizeof(float) * ((size_t)dk * (BR + SB) + 2 * DK);
+// rows staged a tile and the floats of the transposed pass
+constexpr int staged_rows(int cg) { return RM * WARPS / cg + GN * cg; }
+constexpr int sb_stride(int cg) { return staged_rows(cg) + 4; }
+
+size_t smem_bytes(int cg, int dk) {
+  return sizeof(float) * ((size_t)dk * (staged_rows(cg) + sb_stride(cg)) + 2 * DK);
 }
 
-// Blocks of `probe` at dk staged features that the device holds at once
-// (SMs x blocks an SM), found at the first launch of each on each device,
-// or 0 with *err set.
-int resident_blocks(int probe, int dk, cudaError_t* err) {
-  static int cache[64][PROBES][DK + 1];
+// Blocks of `probe` with cg column groups at dk staged features that the
+// device holds at once (SMs x blocks an SM), found at the first launch of
+// each on each device, or 0 with *err set.
+int resident_blocks(int probe, int cg, int dk, cudaError_t* err) {
+  static int cache[64][PROBES][MAX_CG + 1][DK + 1];
   int device = 0;
   *err = cudaGetDevice(&device);
   if (*err != cudaSuccess) return 0;
-  if (device < 64 && cache[device][probe][dk] > 0) return cache[device][probe][dk];
+  if (device < 64 && cache[device][probe][cg][dk] > 0) return cache[device][probe][cg][dk];
   const KernelFn fn = kernel_of(probe);
   int sms = 0, per_sm = 0;
   *err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(DK));
+                              (int)smem_bytes(MAX_CG, DK));
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (*err == cudaSuccess)
     *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
-                                                         smem_bytes(dk));
+                                                         smem_bytes(cg, dk));
   if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
   if (*err != cudaSuccess) return 0;
-  if (device < 64) cache[device][probe][dk] = sms * per_sm;
+  if (device < 64) cache[device][probe][cg][dk] = sms * per_sm;
   return sms * per_sm;
 }
 
 int launch(const float* x, const float* y, const float* ls, const float* os,
-           float* out, int n, int m, int d, int ls_stride, int probe, void* stream) {
-  if (n <= 0 || m <= 0 || d < 1 || ls_stride < 0 || probe < 0 || probe >= PROBES)
+           float* out, int n, int m, int d, int ls_stride, int probe, int cg,
+           int order, void* stream) {
+  if (cg == 0) cg = 1;
+  if (order < 0) order = kRun;
+  if (n <= 0 || m <= 0 || d < 1 || ls_stride < 0 || probe < 0 || probe >= PROBES ||
+      (cg != 1 && cg != 2 && cg != 4) || (order != kStrided && order != kRun))
     return (int)cudaErrorInvalidValue;
-  const long long m_tiles = (m + BN - 1) / BN;
-  const long long tiles = ((n + BM - 1LL) / BM) * m_tiles;
+  const int tr = RM * WARPS / cg, tc = GN * cg;
+  const long long m_tiles = (m + tc - 1) / tc;
+  const long long tiles = ((n + tr - 1LL) / tr) * m_tiles;
   const long long passes = (d + DK - 1) / DK;
-  if (tiles * passes + 1 > 0x7fffffffLL || (long long)BR * d > 0x7fffffffLL)
+  if (tiles * passes + 1 > 0x7fffffffLL || (long long)staged_rows(cg) * d > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int dk = d < DK ? d : DK;
   cudaError_t err;
-  const long long resident = resident_blocks(probe, dk, &err);
+  const long long resident = resident_blocks(probe, cg, dk, &err);
   if (err != cudaSuccess) return (int)err;
   const bool aligned =
       ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y)) & 15) == 0;
   const int copy = aligned && passes == 1 ? kSpan : aligned && d % 4 == 0 ? kChunks : kWords;
   const Problem p{x, y, ls, os, out, n, m, d, ls_stride, (int)m_tiles, (int)tiles,
-                  (int)passes, copy,
+                  (int)passes, copy, order, cg, tr, tc, staged_rows(cg), sb_stride(cg),
                   (m & 3) == 0 && (reinterpret_cast<size_t>(out) & 15) == 0};
   const long long grid = tiles < resident ? tiles : resident;
-  kernel_of(probe)<<<(unsigned)grid, THREADS, smem_bytes(dk), (cudaStream_t)stream>>>(p);
+  kernel_of(probe)<<<(unsigned)grid, THREADS, smem_bytes(cg, dk), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -329,13 +374,17 @@ int launch(const float* x, const float* y, const float* ls, const float* os,
 extern "C" int sober_rbf_gram(const float* x, const float* y, const float* ls,
                               const float* os, float* out, int n, int m, int d,
                               int ls_stride, void* stream) {
-  return launch(x, y, ls, os, out, n, m, d, ls_stride, kFull, stream);
+  return launch(x, y, ls, os, out, n, m, d, ls_stride, kFull, 0, -1, stream);
 }
 
-// The same with a probe: 0 the Gram, 1 no global stores, 2 no distances and
-// no exp. For tools/rbf_gram_bench.py.
+// The same with a probe (0 the Gram, 1 no global stores, 2 no distances
+// and no exp), the column groups of a tile (1, 2 or 4: tiles of 64 x 128,
+// 32 x 256 or 16 x 512; 0 as sober_rbf_gram chooses) and the order of the
+// tiles (0 strided, 1 runs; -1 as sober_rbf_gram chooses). For
+// tools/rbf_gram_bench.py.
 extern "C" int sober_rbf_gram_probe(const float* x, const float* y, const float* ls,
                                     const float* os, float* out, int n, int m, int d,
-                                    int ls_stride, int probe, void* stream) {
-  return launch(x, y, ls, os, out, n, m, d, ls_stride, probe, stream);
+                                    int ls_stride, int probe, int cg, int order,
+                                    void* stream) {
+  return launch(x, y, ls, os, out, n, m, d, ls_stride, probe, cg, order, stream);
 }

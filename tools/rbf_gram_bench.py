@@ -1,7 +1,7 @@
 """Time the RBF Gram kernel at the continuous iteration's strip shapes, on
 one CUDA device.
 
-    python3 tools/rbf_gram_bench.py [--parent DIR]
+    python3 tools/rbf_gram_bench.py [--parent DIR] [--sweep]
 
 For each shape, on uniform random operands with a scalar lengthscale: the
 Gram of `sober_tpu_torch/csrc/rbf_gram.cu` held to `rbf_gram_reference`,
@@ -39,8 +39,12 @@ from sober_tpu_torch.ops.rbf_gram import rbf_gram_reference  # noqa: E402
 SHAPES = ((512, 65_536, 10), (65_536, 500, 10), (500, 65_536, 10),
           (200_000, 500, 4), (500, 200_000, 4), (500, 500, 10),
           (512, 65_536, 100))
-# sober_rbf_gram_probe's probes
-PROBES = {"no_store": 1, "no_compute": 2}
+# sober_rbf_gram_probe's (probe, column groups, order); 0 and -1 leave the
+# tile shape and order to the kernel
+PROBES = {"no_store": (1, 0, -1), "no_compute": (2, 0, -1)}
+# --sweep: every tile shape (column groups) in both orders (0 strided, 1 runs)
+SWEEP = {f"cg{cg}_{'run' if order else 'strided'}{'' if probe == 0 else '_no_store'}":
+         (probe, cg, order) for cg in (1, 2, 4) for order in (0, 1) for probe in (0, 1)}
 
 
 def parent_library(path: Path):
@@ -73,6 +77,7 @@ def gram_call(fn, x, y, ls, os_, out, *extra):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("rbf_gram_bench: needs a CUDA device")
@@ -83,10 +88,12 @@ def main() -> None:
                     if "Compiling entry" in line and "rbf_gram" in line), flush=True)
     probe_fn = lib.sober_rbf_gram_probe
     probe_fn.argtypes = _build._SIGNATURES["sober_rbf_gram"][:-1] + (
-        ctypes.c_int, ctypes.c_void_p)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
     probe_fn.restype = ctypes.c_int
     calls = {"gram": (lib.sober_rbf_gram, ())}
-    calls.update({name: (probe_fn, (v,)) for name, v in PROBES.items()})
+    calls.update({name: (probe_fn, v) for name, v in PROBES.items()})
+    if args.sweep:
+        calls.update({name: (probe_fn, v) for name, v in SWEEP.items()})
     if args.parent is not None:
         calls["parent"] = (parent_library(args.parent).sober_rbf_gram, ())
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -106,7 +113,7 @@ def main() -> None:
                                    params["outputscale"], out, *extra)
             runs[name]()
             torch.cuda.synchronize()
-            if name not in PROBES:
+            if "no_" not in name:
                 row[f"{name}_max_abs_err"] = float((out - want).abs().max())
         for name in list(runs) + list(reversed(runs)):
             row.setdefault(f"{name}_ms", []).append(cuda_ms(runs[name], reps=20))
