@@ -12,35 +12,38 @@
 // enough that the two must overlap. A tensor-core product would buy nothing.
 //
 // What the design does about it:
-//  * Persistent blocks of 8 warps walk 64 x 128 output tiles, as many blocks
-//    as the card holds at once (3 an SM) and never more than the tiles, so
-//    the small Grams (<= 512 x 512, 32 tiles) keep one tile a block. Each
-//    block takes a contiguous run of tiles, columns fastest: a row of the
-//    Gram is written by one block in turn, so where rows are not whole
-//    128-byte lines (m = 500) the lines it shares between two tiles are
-//    completed in L2 while they are still there.
-//  * The operand rows of a tile (64 x rows, 128 y rows) are copied with
-//    cp.async in passes of up to 32 features: for d <= 32 the x and y rows
-//    of a tile are each one contiguous span, copied 16 bytes at a time.
-//    Each pass is then transposed to [k][row] in shared memory and scaled
-//    by sqrt(0.5 log2 e) / ls[k], and the next pass (of this tile or the
-//    next) is copied while this one computes. Any d runs; d <= 32 is one
-//    pass. Rows past n or m are zero-filled and never stored.
+//  * Persistent blocks of 8 warps, as many as the card holds at once (3 an
+//    SM) and never more than the tiles, take the output tiles strided by
+//    the grid, so the small Grams (<= 512 x 512, 32 tiles) keep one tile a
+//    block. A tile is 64 x 128 outputs; for rows of at most 512 floats whose
+//    Gram outnumbers the blocks (the tall strips K(pool, X)), 16 x 512 (or
+//    32 x 256 for m <= 256): whole rows, so the stores of a tile are one
+//    contiguous run of lines rather than 64 runs that start and end inside
+//    128-byte lines shared with other tiles (m = 500 rows are 2000 bytes).
+//  * The operand rows of a tile are copied with cp.async in passes of up to
+//    32 features; for d <= 32 the x rows and the y rows of a tile are each
+//    one contiguous span, copied 16 bytes at a time. Each pass is then
+//    transposed to [k][row] in shared memory and scaled by
+//    sqrt(0.5 log2 e) / ls[k], and the next pass (of this tile or the next)
+//    is copied while this one computes. Rows the block's previous tile
+//    staged already (the same x rows along a wide Gram, the same y rows in
+//    a tall strip) stay staged. Any d runs; d <= 32 is one pass. Rows past
+//    n or m are zero-filled and never stored.
 //  * With the scale folded in, the epilogue is one ex2.approx.ftz and one
 //    multiply by os an output (2^-r equals exp(-0.5 r') for the unfolded
 //    r'). Squared differences are summed directly (not by the norm trick of
 //    ops/kernels.py, whose cancellation grows with d). ex2.approx.ftz writes
 //    0 where the result is below 2^-126 and the reference keeps a denormal
 //    (< 1.2e-38 apart).
-//  * A warp owns 8 output rows of a tile, a lane 4 consecutive columns, so
-//    the lane's 8 x 4 sums read one float4 of y and two broadcast float4s of
-//    x from shared memory a feature, and each output row leaves as one
-//    16-byte streaming store (st.global.cs.v4): a warp writes 512
-//    contiguous bytes at once, and the stores drain while the warp goes on.
-//    (Staging the tile in shared memory for a bulk copy a row, or for a TMA
-//    tensor store a warp, and write-back stores were slower; PERF.md, PR 5.)
-//    Where m is not a multiple of 4 the rows are not 16-byte aligned, and
-//    the outputs are written 4 bytes at a time.
+//  * A warp owns 8 output rows and 128 columns of a tile, a lane 4
+//    consecutive columns, so the lane's 8 x 4 sums read one float4 of y and
+//    two broadcast float4s of x from shared memory a feature, and each
+//    output row leaves as one 16-byte streaming store (st.global.cs.v4): a
+//    warp writes 512 contiguous bytes at once, and the stores drain while
+//    the warp goes on. (Staging the tile in shared memory for a bulk copy a
+//    row or a TMA tensor store a warp, and write-back stores, were slower;
+//    PERF.md, PR 5.) Where m is not a multiple of 4 the rows are not 16-byte
+//    aligned, and the outputs are written 4 bytes at a time.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -68,9 +71,6 @@ constexpr int PROBES = 3;
 // kChunks, 16 bytes at a time a row (d % 4 == 0, aligned bases); kWords,
 // 4 bytes at a time.
 enum Copy { kSpan = 0, kChunks = 1, kWords = 2 };
-// Which tiles a block takes: kStrided, tiles b, b + grid, ...; kRun, a
-// contiguous run of tiles.
-enum Order { kStrided = 0, kRun = 1 };
 
 struct Problem {
   const float* x;
@@ -78,8 +78,10 @@ struct Problem {
   const float* ls;
   const float* os;
   float* out;
-  int n, m, d, ls_stride, m_tiles, tiles, passes, copy, order;
+  int n, m, d, ls_stride, m_tiles, tiles, passes, copy;
   int cg, tr, tc, br, sb;   // column groups, x rows, y rows, both, stride of sb
+  int grid_rows, grid_cols; // the grid as tile rows and columns: gridDim.x
+                            // = grid_rows * m_tiles + grid_cols
   bool vec;                 // m % 4 == 0 and out 16-byte aligned
 };
 
@@ -114,27 +116,27 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int byt
                :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
-// A block's q-th tile, or -1 past its last. A run is [first, end).
-__device__ __forceinline__ int tile_of(const Problem& p, int first, int end, int q) {
-  const int t = p.order == kRun ? first + q : blockIdx.x + q * gridDim.x;
-  return t < (p.order == kRun ? end : p.tiles) ? t : -1;
-}
-
-// What step seq stages: its tile, its pass, and whether its x rows and its
-// y rows must be staged (with one pass, not when the previous tile of the
-// block had the same ones: they are still in sb).
+// What step seq of a block stages: its tile (tiles blockIdx.x, + gridDim.x,
+// ...; -1 past the last), the tile's first x and y rows, its pass, and
+// whether its x rows and its y rows must be staged (with one pass, not
+// when the block's previous tile had the same ones: they are still in sb).
 struct Stage {
-  int tile, pass;
+  int tile, i0, j0, pass;
   bool x, y;
 };
 
-__device__ __forceinline__ Stage stage_of(const Problem& p, int first, int end, int seq) {
+__device__ __forceinline__ Stage stage_of(const Problem& p, int seq) {
   const int q = p.passes == 1 ? seq : seq / p.passes;
-  const int tile = tile_of(p, first, end, q), pass = seq - q * p.passes;
-  if (p.passes > 1 || q == 0 || tile < 0) return {tile, pass, true, true};
-  const int prev = tile_of(p, first, end, q - 1);
-  return {tile, pass, prev / p.m_tiles != tile / p.m_tiles,
-          prev % p.m_tiles != tile % p.m_tiles};
+  const int tile = blockIdx.x + q * gridDim.x, pass = seq - q * p.passes;
+  if (tile >= p.tiles) return {-1, 0, 0, 0, false, false};
+  const int ti = tile / p.m_tiles, tj = tile - ti * p.m_tiles;
+  // the previous tile, gridDim.x before, is in the same tile row when
+  // grid_rows == 0 and tj >= grid_cols, in the same tile column when
+  // grid_cols == 0
+  const bool again = p.passes == 1 && q > 0;
+  return {tile, ti * p.tr, tj * p.tc, pass,
+          !(again && p.grid_rows == 0 && tj >= p.grid_cols),
+          !(again && p.grid_cols == 0)};
 }
 
 // Copy rows [r0, r0 + rows) of a (count, d) operand, features [k0, k0 +
@@ -170,18 +172,16 @@ __device__ __forceinline__ void copy_rows(const Problem& p, uint32_t raw, const 
 // scales into scale. Commits one group, empty past the block's last tile.
 // Returns what it staged.
 __device__ __forceinline__ Stage load_step(const Problem& p, float* raw, float* scale,
-                                           int first, int end, int seq,
-                                           const Walk& full, const Walk& last) {
-  const Stage s = stage_of(p, first, end, seq);
+                                           int seq, const Walk& full, const Walk& last) {
+  const Stage s = stage_of(p, seq);
   if (s.tile >= 0) {
-    const int i0 = (s.tile / p.m_tiles) * p.tr, j0 = (s.tile % p.m_tiles) * p.tc;
     const int k0 = s.pass * DK;
     const int kw = s.pass == p.passes - 1 ? last.w : full.w;
     if (threadIdx.x < kw)
       scale[threadIdx.x] = FOLD / p.ls[(size_t)(k0 + threadIdx.x) * p.ls_stride];
     const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-    if (s.x) copy_rows(p, base, p.x, p.n, i0, p.tr, 0, k0, kw);
-    if (s.y) copy_rows(p, base, p.y, p.m, j0, p.tc, p.tr, k0, kw);
+    if (s.x) copy_rows(p, base, p.x, p.n, s.i0, p.tr, 0, k0, kw);
+    if (s.y) copy_rows(p, base, p.y, p.m, s.j0, p.tc, p.tr, k0, kw);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   return s;
@@ -222,15 +222,11 @@ rbf_gram_kernel(const Problem p) {
   const Walk full = make_walk(DK);
   const Walk last = make_walk(p.d - (p.passes - 1) * DK);
   const float os = *p.os;
-  const int first = (int)((long long)blockIdx.x * p.tiles / gridDim.x);
-  const int end = (int)((long long)(blockIdx.x + 1) * p.tiles / gridDim.x);
 
   int seq = 0;
-  Stage staged = load_step(p, raw, scales, first, end, 0, full, last);
-  for (int q = 0;; ++q) {
-    const int tile = tile_of(p, first, end, q);
-    if (tile < 0) break;
-    const int i0 = (tile / p.m_tiles) * p.tr, j0 = (tile % p.m_tiles) * p.tc;
+  Stage staged = load_step(p, raw, scales, 0, full, last);
+  while (staged.tile >= 0) {
+    const int i0 = staged.i0, j0 = staged.j0;
     float acc[RM][RN];
 #pragma unroll
     for (int r = 0; r < RM; ++r)
@@ -244,8 +240,7 @@ rbf_gram_kernel(const Problem p) {
       const float* scale = scales + (seq & 1) * DK;
       transpose(w, raw, sb, p.sb, scale, staged.x ? 0 : p.tr, staged.y ? p.br : p.tr);
       __syncthreads();   // sb is ready and raw is free
-      staged = load_step(p, raw, scales + ((seq + 1) & 1) * DK, first, end, seq + 1,
-                         full, last);
+      staged = load_step(p, raw, scales + ((seq + 1) & 1) * DK, seq + 1, full, last);
       if (PROBE == kNoCompute) continue;
       const int kw = w.w;
 #pragma unroll 2
@@ -338,29 +333,39 @@ int resident_blocks(int probe, int cg, int dk, cudaError_t* err) {
 
 int launch(const float* x, const float* y, const float* ls, const float* os,
            float* out, int n, int m, int d, int ls_stride, int probe, int cg,
-           int order, void* stream) {
-  if (cg == 0) cg = 1;
-  if (order < 0) order = kRun;
+           void* stream) {
   if (n <= 0 || m <= 0 || d < 1 || ls_stride < 0 || probe < 0 || probe >= PROBES ||
-      (cg != 1 && cg != 2 && cg != 4) || (order != kStrided && order != kRun))
+      (cg != 0 && cg != 1 && cg != 2 && cg != 4))
     return (int)cudaErrorInvalidValue;
+  const long long passes = (d + DK - 1) / DK;
+  const int dk = d < DK ? d : DK;
+  cudaError_t err;
+  if (cg == 0) {
+    // Rows of at most 512 floats whose Gram outnumbers the blocks: tiles of
+    // whole rows (one column tile), whose y rows stay staged from tile to
+    // tile and whose stores cover whole 128-byte lines.
+    const long long resident = resident_blocks(probe, 1, dk, &err);
+    if (err != cudaSuccess) return (int)err;
+    const long long tiles1 = ((n + RM * WARPS - 1LL) / (RM * WARPS)) * ((m + GN - 1) / GN);
+    cg = 1;
+    if (passes == 1 && m <= MAX_CG * GN && tiles1 > resident)
+      while (cg * GN < m) cg *= 2;
+  }
   const int tr = RM * WARPS / cg, tc = GN * cg;
   const long long m_tiles = (m + tc - 1) / tc;
   const long long tiles = ((n + tr - 1LL) / tr) * m_tiles;
-  const long long passes = (d + DK - 1) / DK;
   if (tiles * passes + 1 > 0x7fffffffLL || (long long)staged_rows(cg) * d > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int dk = d < DK ? d : DK;
-  cudaError_t err;
   const long long resident = resident_blocks(probe, cg, dk, &err);
   if (err != cudaSuccess) return (int)err;
   const bool aligned =
       ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y)) & 15) == 0;
   const int copy = aligned && passes == 1 ? kSpan : aligned && d % 4 == 0 ? kChunks : kWords;
-  const Problem p{x, y, ls, os, out, n, m, d, ls_stride, (int)m_tiles, (int)tiles,
-                  (int)passes, copy, order, cg, tr, tc, staged_rows(cg), sb_stride(cg),
-                  (m & 3) == 0 && (reinterpret_cast<size_t>(out) & 15) == 0};
   const long long grid = tiles < resident ? tiles : resident;
+  const Problem p{x, y, ls, os, out, n, m, d, ls_stride, (int)m_tiles, (int)tiles,
+                  (int)passes, copy, cg, tr, tc, staged_rows(cg), sb_stride(cg),
+                  (int)(grid / m_tiles), (int)(grid % m_tiles),
+                  (m & 3) == 0 && (reinterpret_cast<size_t>(out) & 15) == 0};
   kernel_of(probe)<<<(unsigned)grid, THREADS, smem_bytes(cg, dk), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -374,17 +379,15 @@ int launch(const float* x, const float* y, const float* ls, const float* os,
 extern "C" int sober_rbf_gram(const float* x, const float* y, const float* ls,
                               const float* os, float* out, int n, int m, int d,
                               int ls_stride, void* stream) {
-  return launch(x, y, ls, os, out, n, m, d, ls_stride, kFull, 0, -1, stream);
+  return launch(x, y, ls, os, out, n, m, d, ls_stride, kFull, 0, stream);
 }
 
 // The same with a probe (0 the Gram, 1 no global stores, 2 no distances
-// and no exp), the column groups of a tile (1, 2 or 4: tiles of 64 x 128,
-// 32 x 256 or 16 x 512; 0 as sober_rbf_gram chooses) and the order of the
-// tiles (0 strided, 1 runs; -1 as sober_rbf_gram chooses). For
+// and no exp) and the column groups of a tile (1, 2 or 4: tiles of 64 x
+// 128, 32 x 256 or 16 x 512; 0 as sober_rbf_gram chooses). For
 // tools/rbf_gram_bench.py.
 extern "C" int sober_rbf_gram_probe(const float* x, const float* y, const float* ls,
                                     const float* os, float* out, int n, int m, int d,
-                                    int ls_stride, int probe, int cg, int order,
-                                    void* stream) {
-  return launch(x, y, ls, os, out, n, m, d, ls_stride, probe, cg, order, stream);
+                                    int ls_stride, int probe, int cg, void* stream) {
+  return launch(x, y, ls, os, out, n, m, d, ls_stride, probe, cg, stream);
 }

@@ -34,7 +34,8 @@ def cuda():
                                        (500, 200000, 4, False),
                                        (200, 500, 10, False), (1, 500, 4, True),
                                        (257, 130, 33, True), (65, 7, 100, False),
-                                       (130, 700, 100, True)])
+                                       (130, 700, 100, True),
+                                       (13000, 200, 6, True), (30000, 130, 3, False)])
 def test_rbf_kernel_matches_reference_on_card(cuda, n, m, d, ard):
     rng = np.random.default_rng(0)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)

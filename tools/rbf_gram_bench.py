@@ -7,11 +7,12 @@ For each shape, on uniform random operands with a scalar lengthscale: the
 Gram of `sober_tpu_torch/csrc/rbf_gram.cu` held to `rbf_gram_reference`,
 and its two probes (`sober_rbf_gram_probe`: the outputs computed but not
 written, or written without the distances and the exp), which split its
-time between the arithmetic and the stores; with --parent, the Gram of
-another checkout of the repository
-(built from that checkout's own csrc) on the same inputs, e.g. the parent
-commit's; the plain reference; and `torch.empty((n, m)).fill_(1.0)`, a
-yardstick of the card's write rate. Every variant is timed twice, in the
+time between the arithmetic and the stores; with --sweep, each tile shape
+(64 x 128, 32 x 256 and 16 x 512 outputs) with and without stores; with
+--parent, the Gram of another checkout of the repository (built from that
+checkout's own csrc) on the same inputs, e.g. the parent commit's; the
+plain reference; and `torch.empty((n, m)).fill_(1.0)`, a yardstick of the
+card's write rate. Every variant is timed twice, in the
 order given and then reversed, by CUDA events with a sleep kernel queued
 ahead (`chip_smoke.cuda_ms`), median of 20. ptxas's report for the RBF
 kernels comes first. One JSON line per shape.
@@ -39,12 +40,12 @@ from sober_tpu_torch.ops.rbf_gram import rbf_gram_reference  # noqa: E402
 SHAPES = ((512, 65_536, 10), (65_536, 500, 10), (500, 65_536, 10),
           (200_000, 500, 4), (500, 200_000, 4), (500, 500, 10),
           (512, 65_536, 100))
-# sober_rbf_gram_probe's (probe, column groups, order); 0 and -1 leave the
-# tile shape and order to the kernel
-PROBES = {"no_store": (1, 0, -1), "no_compute": (2, 0, -1)}
-# --sweep: every tile shape (column groups) in both orders (0 strided, 1 runs)
-SWEEP = {f"cg{cg}_{'run' if order else 'strided'}{'' if probe == 0 else '_no_store'}":
-         (probe, cg, order) for cg in (1, 2, 4) for order in (0, 1) for probe in (0, 1)}
+# sober_rbf_gram_probe's (probe, column groups); 0 column groups leaves the
+# tile shape to the kernel
+PROBES = {"no_store": (1, 0), "no_compute": (2, 0)}
+# --sweep: every tile shape (1, 2 or 4 column groups), with and without stores
+SWEEP = {f"cg{cg}{'' if probe == 0 else '_no_store'}": (probe, cg)
+         for cg in (1, 2, 4) for probe in (0, 1)}
 
 
 def parent_library(path: Path):
@@ -88,7 +89,7 @@ def main() -> None:
                     if "Compiling entry" in line and "rbf_gram" in line), flush=True)
     probe_fn = lib.sober_rbf_gram_probe
     probe_fn.argtypes = _build._SIGNATURES["sober_rbf_gram"][:-1] + (
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
     probe_fn.restype = ctypes.c_int
     calls = {"gram": (lib.sober_rbf_gram, ())}
     calls.update({name: (probe_fn, v) for name, v in PROBES.items()})
