@@ -202,8 +202,9 @@ def phase_rbf(summary: dict) -> None:
             plain_ms = cuda_ms(lambda: rbf_gram_reference(params, x, y))
             emit(phase="rbf_gram", config=config, shape=[n, m, d], ard=ard,
                  launches_per_iteration=launches, max_abs_err=err,
-                 oracle_max_abs_err=oracle_err, tol=1e-5 * float(os_), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                 bound_by=by, store_library_ms=store_ms)
+                 oracle_max_abs_err=oracle_err, tol=1e-5 * float(os_), ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 store_library_ms=store_ms)
             if not ard and launches:
                 acc = per_iteration.setdefault(config, {"ms": 0.0, "bound_ms": 0.0})
                 acc["ms"] += launches * ms

@@ -79,7 +79,8 @@ struct Problem {
   const float* os;
   float* out;
   int n, m, d, ls_stride, m_tiles, tiles, passes, copy;
-  int cg, tr, tc, br, sb;   // column groups, x rows, y rows, both, stride of sb
+  int cg, tr, tc, br, ld;   // column groups, x rows, y rows, both, floats a
+                            // feature of the transposed pass
   int grid_rows, grid_cols; // the grid as tile rows and columns: gridDim.x
                             // = grid_rows * m_tiles + grid_cols
   bool vec;                 // m % 4 == 0 and out 16-byte aligned
@@ -189,9 +190,9 @@ __device__ __forceinline__ Stage load_step(const Problem& p, float* raw, float* 
 
 // raw rows [r_lo, r_hi) of [*][w.w] into sb as [k][row], scaled
 __device__ __forceinline__ void transpose(const Walk& w, const float* raw, float* sb,
-                                          int sbs, const float* scale, int r_lo, int r_hi) {
+                                          int ld, const float* scale, int r_lo, int r_hi) {
   for (int r = r_lo + w.r0, k = w.c0; r < r_hi; step(w, r, k))
-    sb[k * sbs + r] = raw[r * w.w + k] * scale[k];
+    sb[k * ld + r] = raw[r * w.w + k] * scale[k];
 }
 
 __device__ __forceinline__ float ex2(float a) {
@@ -214,8 +215,8 @@ rbf_gram_kernel(const Problem p) {
   extern __shared__ __align__(16) float smem[];
   const int dk_max = p.d < DK ? p.d : DK;
   float* raw = smem;                          // [br][kw], as copied
-  float* sb = raw + p.br * dk_max;            // [kw][sb], scaled
-  float* scales = sb + dk_max * p.sb;         // [2][DK], by step parity
+  float* sb = raw + p.br * dk_max;            // [kw][ld], scaled
+  float* scales = sb + dk_max * p.ld;         // [2][DK], by step parity
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // warp w owns rows RM (w / cg) .. of the tile and columns GN (w % cg) ..
   const int wr = RM * (warp / p.cg), wc = GN * (warp % p.cg) + RN * lane;
@@ -238,14 +239,14 @@ rbf_gram_kernel(const Problem p) {
       __syncthreads();   // step seq landed for all; step seq - 1 is computed
       const Walk& w = pass == p.passes - 1 ? last : full;
       const float* scale = scales + (seq & 1) * DK;
-      transpose(w, raw, sb, p.sb, scale, staged.x ? 0 : p.tr, staged.y ? p.br : p.tr);
+      transpose(w, raw, sb, p.ld, scale, staged.x ? 0 : p.tr, staged.y ? p.br : p.tr);
       __syncthreads();   // sb is ready and raw is free
       staged = load_step(p, raw, scales + ((seq + 1) & 1) * DK, seq + 1, full, last);
       if (PROBE == kNoCompute) continue;
       const int kw = w.w;
 #pragma unroll 2
       for (int k = 0; k < kw; ++k) {
-        const float* row = sb + k * p.sb;
+        const float* row = sb + k * p.ld;
         const float4 xa = *reinterpret_cast<const float4*>(row + wr);
         const float4 xb = *reinterpret_cast<const float4*>(row + wr + 4);
         const float4 yv = *reinterpret_cast<const float4*>(row + p.tr + wc);

@@ -1,7 +1,7 @@
 """Time the RBF Gram kernel at the continuous iteration's strip shapes, on
 one CUDA device.
 
-    python3 tools/rbf_gram_bench.py [--parent DIR] [--sweep]
+    python3 tools/rbf_gram_bench.py [--parent DIR] [--sweep] [--clock]
 
 For each shape, on uniform random operands with a scalar lengthscale: the
 Gram of `sober_tpu_torch/csrc/rbf_gram.cu` held to `rbf_gram_reference`,
@@ -15,7 +15,9 @@ plain reference; and `torch.empty((n, m)).fill_(1.0)`, a yardstick of the
 card's write rate. Every variant is timed twice, in the
 order given and then reversed, by CUDA events with a sleep kernel queued
 ahead (`chip_smoke.cuda_ms`), median of 20. ptxas's report for the RBF
-kernels comes first. One JSON line per shape.
+kernels comes first. One JSON line per shape. With --clock, a last line
+holds the SM clock and the power draw that nvidia-smi samples every 50 ms
+while the Gram at 512 x 65,536, d = 100 runs back to back for ~2 s.
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ import argparse
 import ctypes
 import importlib.util
 import json
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -75,10 +79,31 @@ def gram_call(fn, x, y, ls, os_, out, *extra):
     return run
 
 
+def sustained_clock(run) -> dict:
+    """nvidia-smi's SM clock (MHz) and power draw (W), sampled every 50 ms
+    while run() is launched back to back for ~2 s."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 2.0:
+            for _ in range(100):
+                run()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    samples = [line.split(",") for line in smi.communicate()[0].splitlines() if "," in line]
+    return {"clocks_sm_mhz": [float(c) for c, _ in samples],
+            "power_draw_w": [float(w) for _, w in samples]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--clock", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("rbf_gram_bench: needs a CUDA device")
@@ -124,6 +149,10 @@ def main() -> None:
         row["bound_ms"], row["bound_by"] = bound_ms(
             4.0 * ((n + m) * d + n * m), float(n) * m * (3 * d + 2), FP32_PEAK)
         print(json.dumps(row), flush=True)
+        if args.clock and (n, m, d) == (512, 65_536, 100):
+            clock = sustained_clock(runs["gram"])
+    if args.clock:
+        print(json.dumps(clock), flush=True)
 
 
 if __name__ == "__main__":
