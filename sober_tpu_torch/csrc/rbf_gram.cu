@@ -7,7 +7,7 @@
 //
 // What bounds it on this card: on the main path d is 4 or 10, so each output
 // costs ~2d + 2 instructions and one 4-byte store. At 512 x 65,536 that is
-// ~0.03 ms of fp32 issue against 0.040 ms to write the 134 MB Gram: the
+// ~0.03 ms of fp32 instructions against 0.040 ms to write the 134 MB Gram: the
 // output write to device memory bounds it, and the arithmetic comes close
 // enough that the two must overlap. A tensor-core product would buy nothing.
 //
@@ -42,7 +42,7 @@
 //    warp writes 512 contiguous bytes at once, and the stores drain while
 //    the warp goes on. (Staging the tile in shared memory for a bulk copy a
 //    row or a TMA tensor store a warp, and write-back stores, were slower;
-//    PERF.md, PR 5.) Where m is not a multiple of 4 the rows are not 16-byte
+//    see PERF.md.) Where m is not a multiple of 4 the rows are not 16-byte
 //    aligned, and the outputs are written 4 bytes at a time.
 #include <cuda_runtime.h>
 #include <stddef.h>
