@@ -61,16 +61,10 @@ constexpr int MAX_BLOCKS_PER_SM = 3;
 // sqrt(0.5 * log2(e)): scaled by it over ls, 2^-|x - y|^2 is the RBF
 constexpr float FOLD = 0.8493218002880191f;
 
-// Probes for tools/rbf_gram_bench.py: kNoStore computes every output and
-// writes none; kNoCompute stages the operands and writes os everywhere.
+// The Gram, and probes that only tools/rbf_gram_bench.py builds (with
+// SOBER_RBF_GRAM_PROBES defined): kNoStore computes every output and writes
+// none; kNoCompute stages the operands and writes os everywhere.
 enum Probe { kFull = 0, kNoStore = 1, kNoCompute = 2 };
-constexpr int PROBES = 3;
-
-// How a pass's operand rows are copied: kSpan, 16 bytes at a time over the
-// contiguous x and y rows of a tile (one pass, 16-byte aligned bases);
-// kChunks, 16 bytes at a time a row (d % 4 == 0, aligned bases); kWords,
-// 4 bytes at a time.
-enum Copy { kSpan = 0, kChunks = 1, kWords = 2 };
 
 struct Problem {
   const float* x;
@@ -78,11 +72,13 @@ struct Problem {
   const float* ls;
   const float* os;
   float* out;
-  int n, m, d, ls_stride, m_tiles, tiles, passes, copy;
+  int n, m, d, ls_stride, m_tiles, tiles, passes;
   int cg, tr, tc, br, ld;   // column groups, x rows, y rows, both, floats a
                             // feature of the transposed pass
   int grid_rows, grid_cols; // the grid as tile rows and columns: gridDim.x
                             // = grid_rows * m_tiles + grid_cols
+  bool span;                // one pass and 16-byte aligned x and y: a
+                            // tile's rows are copied 16 bytes at a time
   bool vec;                 // m % 4 == 0 and out 16-byte aligned
 };
 
@@ -145,8 +141,8 @@ __device__ __forceinline__ Stage stage_of(const Problem& p, int seq) {
 __device__ __forceinline__ void copy_rows(const Problem& p, uint32_t raw, const float* g,
                                           int count, int r0, int rows, int at, int k0,
                                           int kw) {
-  if (p.copy == kSpan) {
-    // one pass: the rows are one span of rows d floats
+  if (p.span) {
+    // the rows are one span of rows d floats
     const int valid = (count - r0 < rows ? count - r0 : rows) * p.d;
     const float* span = g + (size_t)r0 * p.d;
     for (int e = 4 * threadIdx.x; e < rows * p.d; e += 4 * THREADS) {
@@ -155,16 +151,11 @@ __device__ __forceinline__ void copy_rows(const Problem& p, uint32_t raw, const 
       cp_async16(raw + 4u * (at * p.d + e), bytes ? span + e : p.x, bytes);
     }
   } else {
-    const int u = p.copy == kChunks ? 4 : 1;       // floats a copy
-    const Walk cw = make_walk(kw / u);
+    const Walk cw = make_walk(kw);
     for (int r = cw.r0, c = cw.c0; r < rows; step(cw, r, c)) {
       const bool ok = r0 + r < count;
-      const float* src = ok ? g + (size_t)(r0 + r) * p.d + k0 + u * c : p.x;
-      const uint32_t dst = raw + 4u * ((at + r) * kw + u * c);
-      if (u == 4)
-        cp_async16(dst, src, ok ? 16 : 0);
-      else
-        cp_async4(dst, src, ok ? 4 : 0);
+      cp_async4(raw + 4u * ((at + r) * kw + c),
+                ok ? g + (size_t)(r0 + r) * p.d + k0 + c : p.x, ok ? 4 : 0);
     }
   }
 }
@@ -292,14 +283,6 @@ rbf_gram_kernel(const Problem p) {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-typedef void (*KernelFn)(const Problem);
-
-KernelFn kernel_of(int probe) {
-  return probe == kFull ? rbf_gram_kernel<kFull>
-         : probe == kNoStore ? rbf_gram_kernel<kNoStore>
-                             : rbf_gram_kernel<kNoCompute>;
-}
-
 // rows staged a tile and the floats of the transposed pass
 constexpr int staged_rows(int cg) { return RM * WARPS / cg + GN * cg; }
 constexpr int sb_stride(int cg) { return staged_rows(cg) + 4; }
@@ -308,66 +291,62 @@ size_t smem_bytes(int cg, int dk) {
   return sizeof(float) * ((size_t)dk * (staged_rows(cg) + sb_stride(cg)) + 2 * DK);
 }
 
-// Blocks of `probe` with cg column groups at dk staged features that the
-// device holds at once (SMs x blocks an SM), found at the first launch of
-// each on each device, or 0 with *err set.
-int resident_blocks(int probe, int cg, int dk, cudaError_t* err) {
-  static int cache[64][PROBES][MAX_CG + 1][DK + 1];
+// Blocks with cg column groups at dk staged features that the device holds
+// at once (SMs x blocks an SM), found at the first launch of each on each
+// device, or 0 with *err set.
+template <int PROBE>
+int resident_blocks(int cg, int dk, cudaError_t* err) {
+  static int cache[64][MAX_CG + 1][DK + 1];
   int device = 0;
   *err = cudaGetDevice(&device);
   if (*err != cudaSuccess) return 0;
-  if (device < 64 && cache[device][probe][cg][dk] > 0) return cache[device][probe][cg][dk];
-  const KernelFn fn = kernel_of(probe);
+  if (device < 64 && cache[device][cg][dk] > 0) return cache[device][cg][dk];
   int sms = 0, per_sm = 0;
-  *err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  *err = cudaFuncSetAttribute(rbf_gram_kernel<PROBE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem_bytes(MAX_CG, DK));
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (*err == cudaSuccess)
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
-                                                         smem_bytes(cg, dk));
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rbf_gram_kernel<PROBE>,
+                                                         THREADS, smem_bytes(cg, dk));
   if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
   if (*err != cudaSuccess) return 0;
-  if (device < 64) cache[device][probe][cg][dk] = sms * per_sm;
+  if (device < 64) cache[device][cg][dk] = sms * per_sm;
   return sms * per_sm;
 }
 
+template <int PROBE>
 int launch(const float* x, const float* y, const float* ls, const float* os,
-           float* out, int n, int m, int d, int ls_stride, int probe, int cg,
-           void* stream) {
-  if (n <= 0 || m <= 0 || d < 1 || ls_stride < 0 || probe < 0 || probe >= PROBES ||
-      (cg != 0 && cg != 1 && cg != 2 && cg != 4))
-    return (int)cudaErrorInvalidValue;
+           float* out, int n, int m, int d, int ls_stride, void* stream) {
+  if (n <= 0 || m <= 0 || d < 1 || ls_stride < 0) return (int)cudaErrorInvalidValue;
   const long long passes = (d + DK - 1) / DK;
   const int dk = d < DK ? d : DK;
   cudaError_t err;
-  if (cg == 0) {
-    // Rows of at most 512 floats whose Gram outnumbers the blocks: tiles of
-    // whole rows (one column tile), whose y rows stay staged from tile to
-    // tile and whose stores cover whole 128-byte lines.
-    const long long resident = resident_blocks(probe, 1, dk, &err);
-    if (err != cudaSuccess) return (int)err;
-    const long long tiles1 = ((n + RM * WARPS - 1LL) / (RM * WARPS)) * ((m + GN - 1) / GN);
-    cg = 1;
-    if (passes == 1 && m <= MAX_CG * GN && tiles1 > resident)
-      while (cg * GN < m) cg *= 2;
-  }
+  // Rows of at most 512 floats whose Gram outnumbers the blocks: tiles of
+  // whole rows (one column tile), whose y rows stay staged from tile to
+  // tile and whose stores cover whole 128-byte lines. Else 64 x 128.
+  long long resident = resident_blocks<PROBE>(1, dk, &err);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles1 = ((n + RM * WARPS - 1LL) / (RM * WARPS)) * ((m + GN - 1) / GN);
+  int cg = 1;
+  if (passes == 1 && m <= MAX_CG * GN && tiles1 > resident)
+    while (cg * GN < m) cg *= 2;
   const int tr = RM * WARPS / cg, tc = GN * cg;
   const long long m_tiles = (m + tc - 1) / tc;
   const long long tiles = ((n + tr - 1LL) / tr) * m_tiles;
   if (tiles * passes + 1 > 0x7fffffffLL || (long long)staged_rows(cg) * d > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const long long resident = resident_blocks(probe, cg, dk, &err);
+  resident = resident_blocks<PROBE>(cg, dk, &err);
   if (err != cudaSuccess) return (int)err;
-  const bool aligned =
-      ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y)) & 15) == 0;
-  const int copy = aligned && passes == 1 ? kSpan : aligned && d % 4 == 0 ? kChunks : kWords;
   const long long grid = tiles < resident ? tiles : resident;
   const Problem p{x, y, ls, os, out, n, m, d, ls_stride, (int)m_tiles, (int)tiles,
-                  (int)passes, copy, cg, tr, tc, staged_rows(cg), sb_stride(cg),
+                  (int)passes, cg, tr, tc, staged_rows(cg), sb_stride(cg),
                   (int)(grid / m_tiles), (int)(grid % m_tiles),
+                  passes == 1 &&
+                      ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y)) & 15) == 0,
                   (m & 3) == 0 && (reinterpret_cast<size_t>(out) & 15) == 0};
-  kernel_of(probe)<<<(unsigned)grid, THREADS, smem_bytes(cg, dk), (cudaStream_t)stream>>>(p);
+  rbf_gram_kernel<PROBE>
+      <<<(unsigned)grid, THREADS, smem_bytes(cg, dk), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -380,15 +359,16 @@ int launch(const float* x, const float* y, const float* ls, const float* os,
 extern "C" int sober_rbf_gram(const float* x, const float* y, const float* ls,
                               const float* os, float* out, int n, int m, int d,
                               int ls_stride, void* stream) {
-  return launch(x, y, ls, os, out, n, m, d, ls_stride, kFull, 0, stream);
+  return launch<kFull>(x, y, ls, os, out, n, m, d, ls_stride, stream);
 }
 
-// The same with a probe (0 the Gram, 1 no global stores, 2 no distances
-// and no exp) and the column groups of a tile (1, 2 or 4: tiles of 64 x
-// 128, 32 x 256 or 16 x 512; 0 as sober_rbf_gram chooses). For
-// tools/rbf_gram_bench.py.
+#ifdef SOBER_RBF_GRAM_PROBES
+// The same with a probe: 1 no global stores, 2 no distances and no exp.
 extern "C" int sober_rbf_gram_probe(const float* x, const float* y, const float* ls,
                                     const float* os, float* out, int n, int m, int d,
-                                    int ls_stride, int probe, int cg, void* stream) {
-  return launch(x, y, ls, os, out, n, m, d, ls_stride, probe, cg, stream);
+                                    int ls_stride, int probe, void* stream) {
+  return probe == kNoStore     ? launch<kNoStore>(x, y, ls, os, out, n, m, d, ls_stride, stream)
+         : probe == kNoCompute ? launch<kNoCompute>(x, y, ls, os, out, n, m, d, ls_stride, stream)
+                               : (int)cudaErrorInvalidValue;
 }
+#endif

@@ -1,15 +1,15 @@
 """Time the RBF Gram kernel at the continuous iteration's strip shapes, on
 one CUDA device.
 
-    python3 tools/rbf_gram_bench.py [--parent DIR] [--sweep] [--clock]
+    python3 tools/rbf_gram_bench.py [--parent DIR] [--clock]
 
 For each shape, on uniform random operands with a scalar lengthscale: the
 Gram of `sober_tpu_torch/csrc/rbf_gram.cu` held to `rbf_gram_reference`,
 and its two probes (`sober_rbf_gram_probe`: the outputs computed but not
 written, or written without the distances and the exp), which split its
-time between the arithmetic and the stores; with --sweep, each tile shape
-(64 x 128, 32 x 256 and 16 x 512 outputs) with and without stores; with
---parent, the Gram of another checkout of the repository (built from that
+time between the arithmetic and the stores. The probes are compiled only
+here, from the same source with SOBER_RBF_GRAM_PROBES defined, into a
+library of their own; the port's library has none. With --parent, the Gram of another checkout of the repository (built from that
 checkout's own csrc) on the same inputs, e.g. the parent commit's; the
 plain reference; and `torch.empty((n, m)).fill_(1.0)`, a yardstick of the
 card's write rate. Every variant is timed twice, in the
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -44,12 +45,8 @@ from sober_tpu_torch.ops.rbf_gram import rbf_gram_reference  # noqa: E402
 SHAPES = ((512, 65_536, 10), (65_536, 500, 10), (500, 65_536, 10),
           (200_000, 500, 4), (500, 200_000, 4), (500, 500, 10),
           (512, 65_536, 100))
-# sober_rbf_gram_probe's (probe, column groups); 0 column groups leaves the
-# tile shape to the kernel
-PROBES = {"no_store": (1, 0), "no_compute": (2, 0)}
-# --sweep: every tile shape (1, 2 or 4 column groups), with and without stores
-SWEEP = {f"cg{cg}{'' if probe == 0 else '_no_store'}": (probe, cg)
-         for cg in (1, 2, 4) for probe in (0, 1)}
+# sober_rbf_gram_probe's probe argument
+PROBES = {"no_store": 1, "no_compute": 2}
 
 
 def parent_library(path: Path):
@@ -59,6 +56,25 @@ def parent_library(path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.load_library()
+
+
+def probe_function():
+    """sober_rbf_gram_probe, from csrc/rbf_gram.cu built with
+    SOBER_RBF_GRAM_PROBES defined into a library beside the port's."""
+    src = _build.SOURCE_DIR / "rbf_gram.cu"
+    flags = (*_build.NVCC_FLAGS, "-DSOBER_RBF_GRAM_PROBES")
+    tag = hashlib.sha256(" ".join(flags).encode() + src.read_bytes()).hexdigest()[:16]
+    so = _build.BUILD_DIR / f"librbf_gram_probes_{tag}.so"
+    if not so.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.tmp")
+        subprocess.run([_build._find_nvcc(), *flags, "-shared", "-o", str(tmp), str(src)],
+                       check=True, capture_output=True)
+        tmp.replace(so)
+    fn = ctypes.CDLL(str(so)).sober_rbf_gram_probe
+    fn.argtypes = _build._SIGNATURES["sober_rbf_gram"][:-1] + (ctypes.c_int, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def gram_call(fn, x, y, ls, os_, out, *extra):
@@ -102,7 +118,6 @@ def sustained_clock(run) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
-    ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--clock", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -112,14 +127,9 @@ def main() -> None:
     lines = log.splitlines()
     print("\n".join(lines[k + 1] + " " + lines[k + 2] for k, line in enumerate(lines)
                     if "Compiling entry" in line and "rbf_gram" in line), flush=True)
-    probe_fn = lib.sober_rbf_gram_probe
-    probe_fn.argtypes = _build._SIGNATURES["sober_rbf_gram"][:-1] + (
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-    probe_fn.restype = ctypes.c_int
+    probe_fn = probe_function()
     calls = {"gram": (lib.sober_rbf_gram, ())}
-    calls.update({name: (probe_fn, v) for name, v in PROBES.items()})
-    if args.sweep:
-        calls.update({name: (probe_fn, v) for name, v in SWEEP.items()})
+    calls.update({name: (probe_fn, (probe,)) for name, probe in PROBES.items()})
     if args.parent is not None:
         calls["parent"] = (parent_library(args.parent).sober_rbf_gram, ())
     gen = torch.Generator(device="cuda").manual_seed(0)
