@@ -25,10 +25,8 @@
 //    one contiguous span, copied 16 bytes at a time. Each pass is then
 //    transposed to [k][row] in shared memory and scaled by
 //    sqrt(0.5 log2 e) / ls[k], and the next pass (of this tile or the next)
-//    is copied while this one computes. Rows the block's previous tile
-//    staged already (the same x rows along a wide Gram, the same y rows in
-//    a tall strip) stay staged. Any d runs; d <= 32 is one pass. Rows past
-//    n or m are zero-filled and never stored.
+//    is copied while this one computes. Any d runs; d <= 32 is one pass.
+//    Rows past n or m are zero-filled and never stored.
 //  * With the scale folded in, the epilogue is one ex2.approx.ftz and one
 //    multiply by os an output (2^-r equals exp(-0.5 r') for the unfolded
 //    r'). Squared differences are summed directly (not by the norm trick of
@@ -75,8 +73,6 @@ struct Problem {
   int n, m, d, ls_stride, m_tiles, tiles, passes;
   int cg, tr, tc, br, ld;   // column groups, x rows, y rows, both, floats a
                             // feature of the transposed pass
-  int grid_rows, grid_cols; // the grid as tile rows and columns: gridDim.x
-                            // = grid_rows * m_tiles + grid_cols
   bool span;                // one pass and 16-byte aligned x and y: a
                             // tile's rows are copied 16 bytes at a time
   bool vec;                 // m % 4 == 0 and out 16-byte aligned
@@ -114,26 +110,17 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int byt
 }
 
 // What step seq of a block stages: its tile (tiles blockIdx.x, + gridDim.x,
-// ...; -1 past the last), the tile's first x and y rows, its pass, and
-// whether its x rows and its y rows must be staged (with one pass, not
-// when the block's previous tile had the same ones: they are still in sb).
+// ...; -1 past the last), the tile's first x and y rows, and its pass.
 struct Stage {
   int tile, i0, j0, pass;
-  bool x, y;
 };
 
 __device__ __forceinline__ Stage stage_of(const Problem& p, int seq) {
   const int q = p.passes == 1 ? seq : seq / p.passes;
   const int tile = blockIdx.x + q * gridDim.x, pass = seq - q * p.passes;
-  if (tile >= p.tiles) return {-1, 0, 0, 0, false, false};
-  const int ti = tile / p.m_tiles, tj = tile - ti * p.m_tiles;
-  // the previous tile, gridDim.x before, is in the same tile row when
-  // grid_rows == 0 and tj >= grid_cols, in the same tile column when
-  // grid_cols == 0
-  const bool again = p.passes == 1 && q > 0;
-  return {tile, ti * p.tr, tj * p.tc, pass,
-          !(again && p.grid_rows == 0 && tj >= p.grid_cols),
-          !(again && p.grid_cols == 0)};
+  if (tile >= p.tiles) return {-1, 0, 0, 0};
+  const int ti = tile / p.m_tiles;
+  return {tile, ti * p.tr, (tile - ti * p.m_tiles) * p.tc, pass};
 }
 
 // Copy rows [r0, r0 + rows) of a (count, d) operand, features [k0, k0 +
@@ -172,17 +159,17 @@ __device__ __forceinline__ Stage load_step(const Problem& p, float* raw, float* 
     if (threadIdx.x < kw)
       scale[threadIdx.x] = FOLD / p.ls[(size_t)(k0 + threadIdx.x) * p.ls_stride];
     const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-    if (s.x) copy_rows(p, base, p.x, p.n, s.i0, p.tr, 0, k0, kw);
-    if (s.y) copy_rows(p, base, p.y, p.m, s.j0, p.tc, p.tr, k0, kw);
+    copy_rows(p, base, p.x, p.n, s.i0, p.tr, 0, k0, kw);
+    copy_rows(p, base, p.y, p.m, s.j0, p.tc, p.tr, k0, kw);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   return s;
 }
 
-// raw rows [r_lo, r_hi) of [*][w.w] into sb as [k][row], scaled
+// raw [rows][w.w] into sb as [k][row], scaled
 __device__ __forceinline__ void transpose(const Walk& w, const float* raw, float* sb,
-                                          int ld, const float* scale, int r_lo, int r_hi) {
-  for (int r = r_lo + w.r0, k = w.c0; r < r_hi; step(w, r, k))
+                                          int ld, const float* scale, int rows) {
+  for (int r = w.r0, k = w.c0; r < rows; step(w, r, k))
     sb[k * ld + r] = raw[r * w.w + k] * scale[k];
 }
 
@@ -230,7 +217,7 @@ rbf_gram_kernel(const Problem p) {
       __syncthreads();   // step seq landed for all; step seq - 1 is computed
       const Walk& w = pass == p.passes - 1 ? last : full;
       const float* scale = scales + (seq & 1) * DK;
-      transpose(w, raw, sb, p.ld, scale, staged.x ? 0 : p.tr, staged.y ? p.br : p.tr);
+      transpose(w, raw, sb, p.ld, scale, p.br);
       __syncthreads();   // sb is ready and raw is free
       staged = load_step(p, raw, scales + ((seq + 1) & 1) * DK, seq + 1, full, last);
       if (PROBE == kNoCompute) continue;
@@ -323,8 +310,8 @@ int launch(const float* x, const float* y, const float* ls, const float* os,
   const int dk = d < DK ? d : DK;
   cudaError_t err;
   // Rows of at most 512 floats whose Gram outnumbers the blocks: tiles of
-  // whole rows (one column tile), whose y rows stay staged from tile to
-  // tile and whose stores cover whole 128-byte lines. Else 64 x 128.
+  // whole rows (one column tile), whose stores cover whole 128-byte lines.
+  // Else 64 x 128.
   long long resident = resident_blocks<PROBE>(1, dk, &err);
   if (err != cudaSuccess) return (int)err;
   const long long tiles1 = ((n + RM * WARPS - 1LL) / (RM * WARPS)) * ((m + GN - 1) / GN);
@@ -341,7 +328,6 @@ int launch(const float* x, const float* y, const float* ls, const float* os,
   const long long grid = tiles < resident ? tiles : resident;
   const Problem p{x, y, ls, os, out, n, m, d, ls_stride, (int)m_tiles, (int)tiles,
                   (int)passes, cg, tr, tc, staged_rows(cg), sb_stride(cg),
-                  (int)(grid / m_tiles), (int)(grid % m_tiles),
                   passes == 1 &&
                       ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y)) & 15) == 0,
                   (m & 3) == 0 && (reinterpret_cast<size_t>(out) & 15) == 0};
