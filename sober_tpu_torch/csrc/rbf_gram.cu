@@ -25,8 +25,10 @@
 //    one contiguous span, copied 16 bytes at a time. Each pass is then
 //    transposed to [k][row] in shared memory and scaled by
 //    sqrt(0.5 log2 e) / ls[k], and the next pass (of this tile or the next)
-//    is copied while this one computes. Any d runs; d <= 32 is one pass.
-//    Rows past n or m are zero-filled and never stored.
+//    is copied while this one computes. Whole-row tiles all have the same
+//    y rows, so with one pass a block stages those once, at its first tile.
+//    Any d runs; d <= 32 is one pass. Rows past n or m are zero-filled and
+//    never stored.
 //  * With the scale folded in, the epilogue is one ex2.approx.ftz and one
 //    multiply by os an output (2^-r equals exp(-0.5 r') for the unfolded
 //    r'). Squared differences are summed directly (not by the norm trick of
@@ -110,17 +112,21 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int byt
 }
 
 // What step seq of a block stages: its tile (tiles blockIdx.x, + gridDim.x,
-// ...; -1 past the last), the tile's first x and y rows, and its pass.
+// ...; -1 past the last), the tile's first x and y rows, its pass, and
+// whether its y rows must be staged (not when one pass of whole-row tiles
+// staged them at the block's first tile: they are still in sb).
 struct Stage {
   int tile, i0, j0, pass;
+  bool y;
 };
 
 __device__ __forceinline__ Stage stage_of(const Problem& p, int seq) {
   const int q = p.passes == 1 ? seq : seq / p.passes;
   const int tile = blockIdx.x + q * gridDim.x, pass = seq - q * p.passes;
-  if (tile >= p.tiles) return {-1, 0, 0, 0};
+  if (tile >= p.tiles) return {-1, 0, 0, 0, false};
   const int ti = tile / p.m_tiles;
-  return {tile, ti * p.tr, (tile - ti * p.m_tiles) * p.tc, pass};
+  return {tile, ti * p.tr, (tile - ti * p.m_tiles) * p.tc, pass,
+          !(p.m_tiles == 1 && p.passes == 1 && q > 0)};
 }
 
 // Copy rows [r0, r0 + rows) of a (count, d) operand, features [k0, k0 +
@@ -160,13 +166,13 @@ __device__ __forceinline__ Stage load_step(const Problem& p, float* raw, float* 
       scale[threadIdx.x] = FOLD / p.ls[(size_t)(k0 + threadIdx.x) * p.ls_stride];
     const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
     copy_rows(p, base, p.x, p.n, s.i0, p.tr, 0, k0, kw);
-    copy_rows(p, base, p.y, p.m, s.j0, p.tc, p.tr, k0, kw);
+    if (s.y) copy_rows(p, base, p.y, p.m, s.j0, p.tc, p.tr, k0, kw);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   return s;
 }
 
-// raw [rows][w.w] into sb as [k][row], scaled
+// raw rows [0, rows) of [*][w.w] into sb as [k][row], scaled
 __device__ __forceinline__ void transpose(const Walk& w, const float* raw, float* sb,
                                           int ld, const float* scale, int rows) {
   for (int r = w.r0, k = w.c0; r < rows; step(w, r, k))
@@ -217,7 +223,7 @@ rbf_gram_kernel(const Problem p) {
       __syncthreads();   // step seq landed for all; step seq - 1 is computed
       const Walk& w = pass == p.passes - 1 ? last : full;
       const float* scale = scales + (seq & 1) * DK;
-      transpose(w, raw, sb, p.ld, scale, p.br);
+      transpose(w, raw, sb, p.ld, scale, staged.y ? p.br : p.tr);
       __syncthreads();   // sb is ready and raw is free
       staged = load_step(p, raw, scales + ((seq + 1) & 1) * DK, seq + 1, full, last);
       if (PROBE == kNoCompute) continue;
@@ -310,8 +316,8 @@ int launch(const float* x, const float* y, const float* ls, const float* os,
   const int dk = d < DK ? d : DK;
   cudaError_t err;
   // Rows of at most 512 floats whose Gram outnumbers the blocks: tiles of
-  // whole rows (one column tile), whose stores cover whole 128-byte lines.
-  // Else 64 x 128.
+  // whole rows (one column tile), whose stores cover whole 128-byte lines
+  // and whose y rows stay staged from tile to tile. Else 64 x 128.
   long long resident = resident_blocks<PROBE>(1, dk, &err);
   if (err != cudaSuccess) return (int)err;
   const long long tiles1 = ((n + RM * WARPS - 1LL) / (RM * WARPS)) * ((m + GN - 1) / GN);
