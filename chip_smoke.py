@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-Two paths. The first is one exact-GP batch-BO iteration on a continuous
+Four paths. The first is one exact-GP batch-BO iteration on a continuous
 domain: a warm-started MAP refit of the GP hypers, the posterior cache, the
 incumbent eta, and the fused acquisition (pi weights, Nystrom features, the
 halving tree of Caratheodory eliminations). The second is one
 dataset-domain screening iteration, Sober.next_batch over a pool of
 133,303 x 2048-bit fingerprints with a Tanimoto GP (bench.py:bench_dataset).
-The script
+The third is the continuous Sober loop at examples/shekel.py's width:
+fit_gp_padded -> update_model -> Sober.next_batch(200000, 500, 100) on
+Shekel over [0, 10]^4 from a Sobol Uniform proposal that becomes a WKDE,
+then Sober.step with a warm start and a polished batch. The fourth is the
+quick-start Branin gate of tests/test_acceptance.py. The script
 
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
@@ -16,7 +20,8 @@ The script
   2. holds the RBF Gram kernel to its plain PyTorch reference at every
      shape the continuous iterations launch it at (and at d = 100), and
      times both, with torch's fill_ of the same output as a yardstick of
-     the card's write rate beside each strip;
+     the card's write rate beside each strip; and holds the gradient of its
+     autograd Function (the polish's route) to the reference's;
   3. holds the Caratheodory kernel to its reference at both configs'
      shapes, and times both;
   4. holds the Tanimoto Gram and its bit-pack kernel to their references
@@ -32,6 +37,11 @@ The script
   8. fits the Tanimoto GP and runs the full screening iteration at
      bench.py's configuration, with its stage split, launch counts, pool
      packs and host reads of the fingerprint flag;
+  9. runs the Shekel loop (4 iterations, a step, a polish), each batch
+     checked (finite, inside the box, weights >= 0 summing to 1, moment
+     error below 5e-3), with its stage split, launches, host reads, peak
+     memory and device-busy share;
+ 10. runs the Branin gate: seeds 0, 1 and 2 must each reach 10.59;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -40,11 +50,14 @@ numpy seeds; nothing is read from outside the repository.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -76,6 +89,12 @@ DATASET_LAUNCHES = {"tanimoto_gram": 11, "car_eliminate": 5}
 # observations at the pi sweep, and 2 per recombination Gram but 1 for
 # K(nys, nys), whose operands are one tensor
 DATASET_PACKS = 20
+# the Shekel loop at examples/shekel.py's width: initial points, n_rec,
+# n_nys, batch, iterations of fit -> update_model -> next_batch
+SHEKEL = (100, 200_000, 500, 100, 4)
+# the quick-start gate (tests/test_acceptance.py): seeds, initial points,
+# n_rec, n_nys, batch, batches at most, the value each seed must reach
+BRANIN = ((0, 1, 2), 10, 20_000, 500, 30, 8, 10.59)
 # where the TPU kernels live that the CUDA kernels replace (the bit pack
 # computes the row sums |x| and |y| of the Pallas Tanimoto kernel)
 REPLACES = {"rbf_gram": "sober_tpu/ops/pallas_kernels.py:131",
@@ -233,6 +252,43 @@ def car_problem(m, q, dev):
     return (x, mu, mask) + null_basis(x, mu, m - q, mask)
 
 
+def hold_car(m, x, mu, mask, big_n, n_take, active0) -> dict:
+    """The CAR kernel (car_plan's variant) against its reference on one
+    problem: a full run keeps w >= 0, empty padding, the moments to 1e-4
+    and the reference's count of eliminations; up to the reference horizon
+    (the steps where fp32 rounding does not yet decide the path, at least
+    10 or all of them) it eliminates the same rows with weights within
+    1e-5."""
+    from sober_tpu_torch.ops.car import (car_eliminate, car_eliminate_reference,
+                                         car_plan, reference_horizon)
+
+    plan = car_plan(m, n_take)
+    before = car_eliminate.variant_launches[plan.variant]
+    mu_k, el_k = car_eliminate(mu, big_n, mask, n_take)
+    mu_r, el_r = car_eliminate_reference(mu, big_n, mask, n_take)
+    require(car_eliminate.variant_launches[plan.variant] == before + 1,
+            f"car m={m}: {plan.variant} did not run")
+    w_k, w_r = mu_k * (1 - el_k) * active0, mu_r * (1 - el_r) * active0
+    moment = x.T @ mu
+    mom_k = float((x.T @ w_k - moment).abs().max())
+    mom_r = float((x.T @ w_r - moment).abs().max())
+    n_k, n_r = int(el_k.sum()), int(el_r.sum())
+    require(bool((w_k >= 0).all()) and bool((w_k[-7:] == 0).all()),
+            f"car m={m}: w >= 0 and empty padding")
+    require(mom_k < 1e-4 and mom_r < 1e-4, f"car m={m}: moments {mom_k} {mom_r}")
+    require(n_k == n_r, f"car m={m}: {n_k} vs {n_r} eliminations")
+    k = reference_horizon(mu, big_n, mask, n_take)
+    require(k >= min(10, n_take), f"car m={m}: reference horizon only {k} steps")
+    mu_kh, el_kh = car_eliminate(mu, big_n, mask, k)
+    mu_rh, el_rh = car_eliminate_reference(mu, big_n, mask, k)
+    err = float((mu_kh - mu_rh).abs().max())
+    require(bool(torch.equal(el_kh, el_rh)) and err <= 1e-5,
+            f"car m={m} k={k}: same={bool(torch.equal(el_kh, el_rh))} dmu={err}")
+    return {"shape": [m, n_take], "variant": plan.variant, "eliminated": n_k,
+            "horizon": k, "max_abs_err": err, "same_set": bool(torch.equal(el_k, el_r)),
+            "moment_err": mom_k, "moment_err_reference": mom_r}
+
+
 def car_bounds(m, q, n_elim, plan, sync_step_ms, sm_clock_mhz):
     """The CAR kernel's roofline (its inputs read and outputs written once;
     in step t, 2 m (q - t) float64 flops of the dot product and as many
@@ -253,7 +309,7 @@ def car_bounds(m, q, n_elim, plan, sync_step_ms, sm_clock_mhz):
 def phase_car(summary: dict, sm_clock_mhz: float) -> None:
     from sober_tpu_torch.ops.car import (MAX_CLUSTER, CarPlan, _fit, _launch,
                                          car_eliminate, car_eliminate_reference,
-                                         car_plan, reference_horizon)
+                                         car_plan)
 
     dev = torch.device("cuda")
     # the main path's shapes (a cluster at m=400, one block at m=200) and
@@ -266,26 +322,8 @@ def phase_car(summary: dict, sm_clock_mhz: float) -> None:
         alternatives = tuple(p for c in (1, 2, 4, MAX_CLUSTER)
                              if (p := _fit(m, n_take, c)) not in (None, plan))
         alternatives += (CarPlan("l2", 1, 0),) if plan.variant != "l2" else ()
-        before = dict(car_eliminate.variant_launches)
-
-        # full run: the invariants, for both
-        mu_k, el_k = car_eliminate(mu, big_n, mask, n_take)
-        mu_r, el_r = car_eliminate_reference(mu, big_n, mask, n_take)
-        require(car_eliminate.variant_launches[plan.variant]
-                == before[plan.variant] + 1, f"car m={m}: {plan.variant} did not run")
-        w_k, w_r = mu_k * (1 - el_k) * active0, mu_r * (1 - el_r) * active0
-        moment = x.T @ mu
-        mom_k = float((x.T @ w_k - moment).abs().max())
-        mom_r = float((x.T @ w_r - moment).abs().max())
-        n_k, n_r = int(el_k.sum()), int(el_r.sum())
-        require(bool((w_k >= 0).all()) and bool((w_k[-7:] == 0).all()),
-                f"car m={m}: w >= 0 and empty padding")
-        require(mom_k < 1e-4 and mom_r < 1e-4, f"car m={m}: moments {mom_k} {mom_r}")
-        require(n_k == n_r, f"car m={m}: {n_k} vs {n_r} eliminations")
-        # exact agreement over the steps where fp32 rounding does not yet
-        # decide the path (see reference_horizon), for every plan timed
-        k = reference_horizon(mu, big_n, mask, n_take)
-        require(k >= 10, f"car m={m}: reference horizon only {k} steps")
+        full = hold_car(m, x, mu, mask, big_n, n_take, active0)
+        n_k, k = full["eliminated"], full["horizon"]
         mu_rh, el_rh = car_eliminate_reference(mu, big_n, mask, k)
         times, dmu = {}, 0.0
         for alt in (plan,) + alternatives:
@@ -309,8 +347,9 @@ def phase_car(summary: dict, sm_clock_mhz: float) -> None:
                                            sm_clock_mhz)
         emit(phase="car_eliminate", m=m, q=n_take, variant=plan.variant,
              cluster=plan.cluster, smem_bytes=plan.smem_bytes, eliminated=n_k,
-             horizon=k, max_abs_err=dmu, same_set_full_run=bool(torch.equal(el_k, el_r)),
-             moment_err=mom_k, moment_err_reference=mom_r, ms=ms, ms_by_plan=times,
+             horizon=k, max_abs_err=dmu, same_set_full_run=full["same_set"],
+             moment_err=full["moment_err"], moment_err_reference=full["moment_err_reference"],
+             ms=ms, ms_by_plan=times,
              plain_ms=plain_ms, no_lane_run_ms=zero_ms, bound_ms=roof_ms,
              bound_by=by, step_floor_ms=floor_ms)
         if m == 400:
@@ -850,11 +889,351 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
          n_pos=int(sober.last_npos), peak_mem_gib=peak_gib)
 
 
+def phase_rbf_backward() -> None:
+    """The RBF Gram's autograd Function (kernel forward, plain backward from
+    the saved Gram) against autograd through the reference, in x and y, at
+    the polish's shape (8 starts against 512 padded observations) and at a
+    Shekel strip; relative 1e-5 of the largest gradient entry."""
+    from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
+
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    for n, m in ((8, 512), (500, 200_000)):
+        x, y = t(rng.uniform(0, 10, (n, 4))), t(rng.uniform(0, 10, (m, 4)))
+        params = {"lengthscale": t(2.0), "outputscale": t(1.3)}
+        g = t(rng.normal(size=(n, m)))
+        grads = []
+        for fn in (rbf_gram, rbf_gram_reference):
+            a, b = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+            torch.sum(fn(params, a, b) * g).backward()
+            grads.append((a.grad, b.grad))
+        errs = [float((got - want).abs().max() / want.abs().max())
+                for got, want in zip(*grads)]
+        require(max(errs) <= 1e-5, f"rbf backward {n}x{m}: rel err {errs}")
+        emit(phase="rbf_backward", shape=[n, m, 4], rel_err_x=errs[0],
+             rel_err_y=errs[1], tol=1e-5)
+
+
+@contextlib.contextmanager
+def host_reads():
+    """Counts the synchronizing device-to-host operations inside the block,
+    with torch.cuda's sync debug mode; the count is appended to the yielded
+    list when the block ends."""
+    out = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out.append(sum("synchronizing" in str(w.message) for w in caught))
+
+
+def capture_recombination(sober) -> dict:
+    """Keep the inputs and outputs of the sampler's recombination calls, so
+    that each batch's weights and moment error can be checked after a
+    next_batch or step call."""
+    seen, inner = {}, sober.sampling_recombination
+
+    def run(x_cand, x_nys, weights, batch, calc_obj=None):
+        idx, w = inner(x_cand, x_nys, weights, batch, calc_obj=calc_obj)
+        seen.update(x_cand=x_cand, x_nys=x_nys, weights=weights, idx=idx, w=w)
+        return idx, w
+
+    sober.sampling_recombination = run
+    return seen
+
+
+def check_continuous_batch(sober, seen, xb, lo, hi, batch, label) -> dict:
+    """A continuous batch: finite and inside the closed box (a WKDE clips
+    the draws still outside after its rejection rounds onto the box, and
+    its pdf counts the boundary as inside: sober_tpu/priors/wkde.py:84-117),
+    recombination weights >= 0 summing to 1, and the moment error below
+    5e-3. Returns the moment error and the count of points on the
+    boundary."""
+    require(tuple(xb.shape) == (batch, lo.shape[0]), f"{label}: batch shape")
+    require(bool(torch.isfinite(xb).all()), f"{label}: finite")
+    require(bool(((xb >= lo) & (xb <= hi)).all()), f"{label}: inside the box")
+    w = seen["w"]
+    require(bool((w >= 0).all()) and abs(float(w.sum()) - 1.0) < 1e-3,
+            f"{label}: w >= 0, sum w = {float(w.sum())}")
+    mom = moment_error(sober.kernel, seen["x_cand"], seen["x_nys"], seen["weights"],
+                       seen["idx"], w, batch)
+    require(mom < 5e-3, f"{label}: moment error {mom}")
+    on_boundary = int(((xb == lo) | (xb == hi)).any(dim=1).sum())
+    return {"moment_err": mom, "on_boundary": on_boundary}
+
+
+def launch_counts() -> dict:
+    from sober_tpu_torch.ops.car import car_eliminate
+    from sober_tpu_torch.ops.rbf_gram import rbf_gram
+
+    return {"rbf_gram": rbf_gram.launches, "car_eliminate": car_eliminate.launches}
+
+
+def zero_counts() -> None:
+    from sober_tpu_torch.ops.car import car_eliminate
+    from sober_tpu_torch.ops.rbf_gram import rbf_gram
+
+    rbf_gram.launches = car_eliminate.launches = 0
+
+
+# (n, m, d, ard) of every RBF Gram and (m, q) of every CAR basis that the
+# Sober loop and the Branin gate launch
+PATH_RBF_SHAPES, PATH_CAR_SHAPES = set(), set()
+
+
+@contextlib.contextmanager
+def counted(path: dict):
+    """Adds the RBF and CAR launches made inside the block to `path`, and
+    their shapes to PATH_RBF_SHAPES and PATH_CAR_SHAPES."""
+    # the modules, not the functions of the same names that ops/ exports
+    rbf = importlib.import_module("sober_tpu_torch.ops.rbf_gram")
+    car = importlib.import_module("sober_tpu_torch.ops.car")
+    rbf_inner, car_inner = rbf._launch, car._launch
+
+    def rbf_launch(x, y, ls, os_):
+        PATH_RBF_SHAPES.add((x.shape[0], y.shape[0], x.shape[1], ls.numel() > 1))
+        return rbf_inner(x, y, ls, os_)
+
+    def car_launch(mu, big_n, row_mask, n_take, plan):
+        PATH_CAR_SHAPES.add(tuple(big_n.shape[-2:]))
+        return car_inner(mu, big_n, row_mask, n_take, plan)
+
+    before = launch_counts()
+    rbf._launch, car._launch = rbf_launch, car_launch
+    try:
+        yield
+    finally:
+        rbf._launch, car._launch = rbf_inner, car_inner
+    for name, n in launch_counts().items():
+        path[name] = path.get(name, 0) + n - before[name]
+
+
+def hold_rbf(params: dict, x, y, label: str) -> dict:
+    """The RBF kernel against its plain version on the same operands, in
+    float32 and in float64 (the reference's norm trick cancels in float32,
+    the kernel sums direct differences): within 1e-5 * outputscale of the
+    float64 Gram, and of the float32 one up to that one's own distance
+    from float64."""
+    from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
+
+    got = rbf_gram(params, x, y).double()
+    ref = rbf_gram_reference(params, x, y).double()
+    ref64 = rbf_gram_reference({k: v.double() for k, v in params.items()},
+                               x.double(), y.double())
+    err, err64 = float((got - ref).abs().max()), float((got - ref64).abs().max())
+    drift = float((ref - ref64).abs().max())
+    tol = 1e-5 * float(params["outputscale"])
+    require(err64 <= tol and err <= tol + drift,
+            f"{label}: rbf {tuple(x.shape)} x {tuple(y.shape)}: err {err}, "
+            f"float64 {err64}, reference drift {drift}, tol {tol}")
+    return {"shape": [x.shape[0], y.shape[0], x.shape[1]], "max_abs_err": err,
+            "float64_err": err64, "reference_drift": drift, "tol": tol}
+
+
+def phase_path_shapes() -> None:
+    """The RBF and CAR kernels against their plain versions at every shape
+    the Sober loop and the Branin gate launched, so every tile and variant
+    the host picked on that path is held on the card: each (n, m, d, ard)
+    Gram on coordinates in [-1, 1] (phase_rbf's draw), each (m, q) basis
+    on car_problem's."""
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    worst = {}
+    for n, m, d, ard in sorted(PATH_RBF_SHAPES):
+        ls = t(rng.uniform(0.5, 1.5, d)) if ard else t(0.8)
+        params = {"lengthscale": ls, "outputscale": t(1.3)}
+        row = hold_rbf(params, t(rng.uniform(-1, 1, (n, d))),
+                       t(rng.uniform(-1, 1, (m, d))), "path shapes")
+        if row["float64_err"] >= worst.get("float64_err", -1.0):
+            worst = row
+    emit(phase="rbf_path_shapes", n_shapes=len(PATH_RBF_SHAPES),
+         shapes=sorted(PATH_RBF_SHAPES), worst=worst)
+    for m, q in sorted(PATH_CAR_SHAPES):
+        emit(phase="car_path_shape", **hold_car(m, *car_problem(m, q, dev)))
+
+
+def add_counts(counts: dict, path: dict, label: str) -> None:
+    """The RBF and CAR launches of the path just driven, into `counts`; both
+    must have launched."""
+    for name in ("rbf_gram", "car_eliminate"):
+        require(path.get(name, 0) > 0, f"{label}: {name} never launched")
+        counts[name] = counts.get(name, 0) + path[name]
+
+
+def busy_share(run) -> dict:
+    """Device-busy share of one run under torch.profiler: the kernels'
+    device time over the run's host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    us = lambda e: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+    dev_us = sum(us(e) for e in rows)
+    top = sorted(rows, key=us, reverse=True)[:8]
+    return {"wall_ms": 1e3 * wall, "device_ms": dev_us / 1e3 if dev_us else None,
+            "busy_share": dev_us / 1e6 / wall if dev_us else None,
+            "top_kernels_ms": {e.key[:60]: [us(e) / 1e3, e.count] for e in top}}
+
+
+def phase_sober_loop(counts: dict) -> None:
+    """examples/shekel.py's loop at full width on the card: 100 Sobol
+    points, then fit_gp_padded -> update_model -> next_batch(200000, 500,
+    100) four times (the first moves the Uniform proposal on to a WKDE),
+    then Sober.step with a warm start and a polished next_batch. Every batch
+    is checked; each iteration's stages (host clock after a device sync),
+    launches, host reads and peak memory are printed, and one more
+    iteration runs under torch.profiler for the device-busy share. At each
+    call, pi's predict Gram over the last pool against the padded
+    observations is held to its plain version (`hold_rbf`)."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.gp.exact import fit_gp_padded, posterior_mean
+    from sober_tpu_torch.priors import WeightedKernelDensityEstimation
+    from sober_tpu_torch.tasks.synthetic import setup_shekel
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    n_init, n_rec, n_nys, batch, iters = SHEKEL
+    dev = torch.device("cuda")
+    with host_reads() as probe_sync:
+        torch.cuda.synchronize()
+    with host_reads() as probe_read:
+        bool(torch.ones(1, device=dev).sum() > 0)
+    require(probe_read[0] == 1, f"sync debug mode saw {probe_read[0]} reads of 1")
+    prior, objective = setup_shekel(device=dev)
+    lo, hi = prior.bounds[0], prior.bounds[1]
+    x = prior.sample(KeyRing(0, device=dev).next(), n_init)
+    y = objective(x)
+    sober = Sober(prior, fit_gp_padded(x, y))
+    seen = capture_recombination(sober)
+    torch.cuda.synchronize()
+    zero_counts()
+    rows, path = [], {}
+    for it in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches = {}
+        with counted(launches):
+            t0 = time.perf_counter()
+            model = fit_gp_padded(x, y)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            sober.update_model(model)
+            proposal = type(sober.prior).__name__
+            with host_reads() as reads:
+                xb = sober.next_batch(n_rec, n_nys, batch, verbose=True)
+        # verbose syncs the device three times (the stages and the total)
+        n_reads = reads[0] - 3 * probe_sync[0]
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        checked = check_continuous_batch(sober, seen, xb, lo, hi, batch, f"shekel {it}")
+        # pi's predict Gram over the last pool against the padded observations
+        checked["pi_gram"] = hold_rbf(model.kernel.params, seen["x_cand"], model.x,
+                                      f"shekel {it}")
+        yb = objective(xb)
+        x, y = torch.cat([x, xb]), torch.cat([y, yb])
+        t = sober.last_timings
+        rows.append({"iteration": it, "proposal": proposal, "n_obs": int(model.mask.sum()),
+                     "fit_ms": 1e3 * fit_s, "candidates_ms": 1e3 * t["candidates"],
+                     "recombination_ms": 1e3 * t["recombination"],
+                     "next_batch_ms": 1e3 * t["total"], "launches": launches,
+                     "host_reads": n_reads, "pipeline_reads": sober.last_reads,
+                     "peak_mem_gib": peak, **checked,
+                     "n_pos": int(sober.last_npos), "best": float(y.max())})
+        emit(phase="sober_loop_iteration", **rows[-1])
+    require(isinstance(sober.prior, WeightedKernelDensityEstimation),
+            "shekel: the proposal never became a WKDE")
+    median = {k: statistics.median(r[k] for r in rows[1:]) for k in
+              ("fit_ms", "candidates_ms", "recombination_ms", "next_batch_ms",
+               "host_reads", "peak_mem_gib")}
+
+    def one_more():
+        sober.update_model(fit_gp_padded(x, y))
+        sober.next_batch(n_rec, n_nys, batch)
+    # the WKDE pdf over the last pool, alone (a 200,000 x 4,096 mixture)
+    pdf_ms = cuda_ms(lambda: sober.prior.pdf(seen["x_cand"]), reps=5)
+    with counted(path):
+        profiled = busy_share(one_more)
+        xs = sober.step(x, y, n_rec, n_nys, batch, warm_start=True)
+    step_ms = {k: 1e3 * v for k, v in sober.last_timings.items()}
+    step_checked = check_continuous_batch(sober, seen, xs, lo, hi, batch, "shekel step")
+    step_checked["pi_gram"] = hold_rbf(sober.pi.model.kernel.params, seen["x_cand"],
+                                       sober.pi.model.x, "shekel step")
+    x, y = torch.cat([x, xs]), torch.cat([y, objective(xs)])
+    with counted(path):
+        sober.update_model(fit_gp_padded(x, y))
+        xp = sober.next_batch(n_rec, n_nys, batch, polish=True)
+    polish_checked = check_continuous_batch(sober, seen, xp, lo, hi, batch,
+                                            "shekel polish")
+    polish_checked["pi_gram"] = hold_rbf(sober.pi.model.kernel.params, seen["x_cand"],
+                                         sober.pi.model.x, "shekel polish")
+    mu = posterior_mean(sober.pi.model, xp)
+    unpolished = seen["x_cand"][seen["idx"]]
+    require(torch.equal(xp[:-1], unpolished[:-1]), "shekel polish: other points moved")
+    add_counts(counts, path, "sober_loop")
+    emit(phase="sober_loop", n_init=n_init, n_rec=n_rec, n_nys=n_nys, batch=batch,
+         d=4, iterations=iters, median_iterations_2_on=median, launches_on_path=path,
+         wkde_pdf_ms=pdf_ms, profile_one_iteration=profiled,
+         sync_probe={"synchronize": probe_sync[0], "bool": probe_read[0]},
+         step_batch=step_checked, step_timings_ms=step_ms, polish_batch=polish_checked,
+         polished_mean=float(mu[-1]), best_unpolished_mean=float(mu[:-1].max()),
+         best=float(y.max()), truth=10.5364)
+
+
+def phase_branin_gate(counts: dict) -> None:
+    """tests/test_acceptance.py's bar on the card: for each seed, 10 Sobol
+    points of the quick-start Branin, then up to 8 batches of
+    next_batch(20000, 500, 30); every seed must reach 10.59 (truth
+    10.6043)."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.tasks.synthetic import setup_branin
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    seeds, n_init, n_rec, n_nys, batch, max_batches, target = BRANIN
+    dev = torch.device("cuda")
+    zero_counts()
+    bests, used, path = [], [], {}
+    t0 = time.perf_counter()
+    for seed in seeds:
+        prior, objective = setup_branin(seed=seed, device=dev)
+        x = prior.sample(KeyRing(seed, device=dev).next(), n_init)
+        y = objective(x)
+        sober = Sober(prior, fit_gp_padded(x, y), seed=seed)
+        best, n = float(y.max()), 0
+        while n < max_batches and best < target:
+            with counted(path):
+                sober.update_model(fit_gp_padded(x, y))
+                xb = sober.next_batch(n_rec, n_nys, batch)
+            yb = objective(xb)
+            x, y = torch.cat([x, xb]), torch.cat([y, yb])
+            best, n = max(best, float(yb.max())), n + 1
+        bests.append(best)
+        used.append(n)
+    add_counts(counts, path, "branin_gate")
+    emit(phase="branin_gate", seeds=list(seeds), bests=bests, batches=used,
+         launches_on_path=path,
+         target=target, truth=10.6043, seconds=time.perf_counter() - t0)
+    require(all(b >= target for b in bests), f"branin gate: bests {bests}")
+
+
 def main() -> None:
     smi, sm_clock = phase_device()
     phase_build()
     summary, counts = {}, {}
     phase_rbf(summary)
+    phase_rbf_backward()
     phase_car(summary, sm_clock)
     t0 = time.perf_counter()
     pool, targets = make_pool()
@@ -866,6 +1245,9 @@ def main() -> None:
     for row in CONFIGS:
         phase_iteration(row, counts)
     phase_dataset_iteration(pool, targets, counts)
+    phase_sober_loop(counts)
+    phase_branin_gate(counts)
+    phase_path_shapes()
     kernels = []
     for name in ("rbf_gram", "car_eliminate", "tanimoto_gram", "pack_bits"):
         s = summary[name]

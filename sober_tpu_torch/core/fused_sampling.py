@@ -1,12 +1,21 @@
-"""The dataset-domain acquisition pipeline (port of the dataset family of
-sober_tpu/core/fused_sampling.py).
+"""The acquisition pipelines: the candidate pool, its pi weights, the
+proposal update and the Nystrom subset (port of the dataset and continuous
+families of sober_tpu/core/fused_sampling.py).
 
-pi over the whole pool -> adaptive top-k pruning -> Nystrom subset by
-inverse-weight resampling -> kernel recombination, with the batch mapped
-back to dataset rows. The JAX package traces this into one program beside
-a staged twin; the port runs it eagerly, once: the staged
-`EmpiricalSampler.sampling_datasets` calls `dataset_candidates` below.
-The other domain families are not ported yet (ROADMAP.md, queue 1).
+The JAX package traces each family into one program beside a staged twin;
+the port runs one eager pipeline per family, with host branches where JAX
+has lax.cond and lax.while_loop:
+
+  * dataset (`fused_iteration_dataset`): pi over the whole pool ->
+    adaptive top-k pruning -> Nystrom subset by inverse-weight resampling
+    -> kernel recombination;
+  * continuous (`EmpiricalSampler.sampling_candidates`, from the parts
+    here: `pi_weights`, `refill`, `select_nys`): a Uniform (Sobol),
+    Gaussian or WKDE proposal -> a pool and its weights -> the
+    weight-health branch -> a WKDE refit -> refill rounds -> a KMeans
+    Nystrom subset.
+
+The discrete and mixed families wait for ROADMAP.md queue 1, item 10.
 """
 from __future__ import annotations
 
@@ -14,9 +23,10 @@ from typing import Callable, Optional
 
 import torch
 
-from ..utils.weights import cleansing_weights, deweighted_resampling
+from ..ops.kmeans import kmeans_resampling
+from ..utils.weights import (cleansing_weights, deweighted_resampling,
+                             weighted_resampling)
 from .rchq import _top, recombination
-
 
 def adaptive_pruning(weights: torch.Tensor, n_rec: int, n_nys: int,
                      thresh: float):
@@ -66,3 +76,48 @@ def fused_iteration_dataset(pi: Callable, x_all: torch.Tensor,
     idx, w_rchq = recombination(x_cand, x_nys, batch, kernel,
                                 init_weights=w, calc_obj=calc_obj)
     return idx_sampled[idx], x_cand[idx], w_rchq, torch.sum(w > 0)
+
+
+# ----------------------------------------------------------------------------
+# the continuous family
+# ----------------------------------------------------------------------------
+
+# rows resampled by weight before KMeans picks the Nystrom centroids
+NYS_POOL = 4096
+
+
+def pi_weights(pi: Callable, x: torch.Tensor, pdf: torch.Tensor) -> torch.Tensor:
+    """cleanse(pi(x) / p(x)): a pool's importance weights
+    (EmpiricalSampler.sampling, SOBER/_sampler.py:173-187)."""
+    return cleansing_weights(pi(x) / torch.clamp_min(pdf, 1e-38))
+
+
+def refill(draw: Callable, x: torch.Tensor, w: torch.Tensor, need: int,
+           bound: int):
+    """Accumulate until enough (recursive_sampling, SOBER/_sampler.py:
+    205-261): rounds 1..bound-1 each draw a fresh pool (`draw()` -> (x, w))
+    and fill the zero-weight rows in place, while at most `need` rows are
+    accepted. One host read of the accepted count per round, the first
+    included. Returns (x, w, none_accepted, reads); w is uniform when
+    nothing was accepted, cleansed otherwise."""
+    n_pos, reads = int(torch.sum(w > 0)), 1
+    for _ in range(1, bound):
+        if n_pos > need:
+            break
+        x2, w2 = draw()
+        fill = (w == 0) & (w2 > 0)
+        x = torch.where(fill[:, None], x2, x)
+        w = torch.where(fill, w2, w)
+        n_pos, reads = int(torch.sum(w > 0)), reads + 1
+    if n_pos == 0:
+        return x, torch.full_like(w, 1.0 / w.shape[0]), True, reads
+    return x, cleansing_weights(w), False, reads
+
+
+def select_nys(gen: torch.Generator, x: torch.Tensor, w: torch.Tensor,
+               n_nys: int) -> torch.Tensor:
+    """Continuous Nystrom subset (SOBER/_sampler.py:316-320): up to
+    NYS_POOL rows resampled by weight, sparsified to n_nys KMeans
+    centroids."""
+    idx = weighted_resampling(gen, w, min(x.shape[0], NYS_POOL))
+    return kmeans_resampling(x[idx], n_nys)

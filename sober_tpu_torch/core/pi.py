@@ -4,6 +4,8 @@ of improvement over the incumbent eta (the max posterior mean at the
 observed inputs)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..gp.exact import GPState, posterior_max_mean, predict
@@ -11,11 +13,19 @@ from ..gp.exact import GPState, posterior_max_mean, predict
 EPS = float(torch.finfo(torch.float32).eps)
 
 
+def normal_cdf(z: torch.Tensor) -> torch.Tensor:
+    """Phi(z) = erfc(-z / sqrt 2) / 2, which keeps the lower tail in float32
+    as jax.scipy.stats.norm.cdf does; torch.special.ndtr returns 0 below
+    z ~ -5.5 in float32, which zeroes most of a pool's weights far from the
+    incumbent and starves the proposal refit."""
+    return 0.5 * torch.erfc(-z * math.sqrt(0.5))
+
+
 def lfi(state: GPState, eta: torch.Tensor, x_cand: torch.Tensor,
         log: bool = False) -> torch.Tensor:
     """Phi((mu - eta) / sigma) at x_cand (SOBER/_pi.py:20-38)."""
     mu, var = predict(state, x_cand)
-    val = torch.special.ndtr((mu - eta) / torch.sqrt(var))
+    val = normal_cdf((mu - eta) / torch.sqrt(var))
     if log:
         return torch.log(val + EPS)
     return val

@@ -1,18 +1,23 @@
 """The Sober orchestrator: batch Bayesian optimization as batch Bayesian
 quadrature (port of sober_tpu/core/sober.py; SOBER/_sober.py).
 
-One `next_batch` call runs the acquisition: pi over the candidate pool,
-pruning, a Nystrom subset and kernel recombination. Ported for exact-GP
-models on dataset domains; the continuous/discrete branches, `step`,
-`step_fbgp`, FBGP/BQ models and the exploit polish are ROADMAP.md queue 1,
-items 8, 10 and 12.
+One `next_batch` call runs the acquisition: (a proposal reset on
+stagnation) -> the pi-weighted candidate pool -> a Nystrom subset ->
+kernel recombination -> the batch, with an optional exploit polish on
+continuous domains. `step` refits the GP first. Ported for exact-GP models
+on continuous (Uniform, Gaussian, WKDE proposals) and dataset domains; the
+discrete domains, `step_fbgp` and the FBGP/BQ models are ROADMAP.md
+queue 1, items 10 and 12.
 """
 from __future__ import annotations
 
 import time
 
 import numpy as np
+import torch
 
+from ..gp.exact import (GPConfig, GPState, fit_gp_padded, init_params,
+                        polish_posterior_mean, raw_params_from_state)
 from ..ops.tanimoto_gram import check_fingerprints
 from .pi import PI
 from .rckernel import RecombinationKernel
@@ -27,7 +32,8 @@ class Sober(EmpiricalSampler):
         """(SOBER/_sober.py:9-39)
 
         Args:
-          prior: a prior from sober_tpu_torch.priors (DatasetPrior)
+          prior: a prior from sober_tpu_torch.priors (Uniform, Gaussian,
+                 WeightedKernelDensityEstimation or DatasetPrior)
           model: a fitted exact-GP GPState
           thresh: minimum distinct positive weights before the weights are
                   considered degenerate
@@ -44,6 +50,9 @@ class Sober(EmpiricalSampler):
         pi, kernel = self.initialisation(model)
         self.n_batches_until_reset = 3
         self.last_timings: dict[str, float] = {}
+        # did the last iteration reset the proposal, and how many resets so far
+        self.last_reset = False
+        self.reset_count = 0
         super().__init__(prior, pi, kernel, thresh=thresh, label=prior.type,
                          seed=seed)
 
@@ -69,9 +78,9 @@ class Sober(EmpiricalSampler):
         return pi, kernel
 
     def update_model(self, model):
-        """Swap in a refit model (SOBER/_sober.py:74-82). n_init is pinned
-        at construction: the stagnation heuristic measures progress since
-        then."""
+        """Swap in a refit model, keeping the learned proposal
+        (SOBER/_sober.py:74-82). n_init is pinned at construction: the
+        stagnation heuristic measures progress since then."""
         n_init = self.n_init
         self.check_model_type(model)
         self.n_init = n_init
@@ -89,9 +98,9 @@ class Sober(EmpiricalSampler):
     def should_reset_prior(self, batch_size: int, recycle_prior: bool,
                            targets=None) -> bool:
         """Stagnation heuristic: reset the proposal after 3 non-improving
-        batches (SOBER/_sober.py:84-123), on the host. The dataset domain
-        never resets; the continuous and discrete branches that do are not
-        ported yet."""
+        batches (SOBER/_sober.py:84-123), on the host. `targets` overrides
+        the model's observations (`step` runs it before the refit, on the
+        targets it is about to fit). Dataset domains never reset."""
         if targets is None:
             targets = self._targets()
         learning_length = len(targets) - self.n_init
@@ -108,7 +117,13 @@ class Sober(EmpiricalSampler):
         n_nonimproved = n_iterations - n_batches + 2
         return n_nonimproved >= self.n_batches_until_reset or not recycle_prior
 
-    # -- main entry ----------------------------------------------------------
+    def _mark_reset(self):
+        """initialise_prior, with the reset's bookkeeping."""
+        self.last_reset = True
+        self.reset_count += 1
+        self.initialise_prior()
+
+    # -- main entries --------------------------------------------------------
 
     def next_batch(self, n_rec: int, n_nys: int, batch_size: int,
                    calc_obj=None, return_weights: bool = False,
@@ -117,43 +132,148 @@ class Sober(EmpiricalSampler):
         """Sample the next batch by kernel recombination
         (SOBER/_sober.py:125-195).
 
-        Returns (global_indices, X_batch) for a dataset domain, or
-        (w, X_batch) with return_weights=True. calc_obj: optional callable
-        X -> (N,) acquisition values to push within the quadrature
-        constraints. recycle_prior only matters for the domains whose
-        proposal can reset, which are not ported yet."""
-        if polish:
-            raise NotImplementedError(
-                "the exploit polish is for continuous domains (ROADMAP.md "
-                "queue 1, item 8)")
-        t0 = time.monotonic()
-        idx_global, x_batch, w_rchq = self._fused_dataset_iteration(
-            n_rec, n_nys, batch_size, self.dataset_pruning, calc_obj=calc_obj)
-        if verbose:
-            print(f"--- acquisition {time.monotonic() - t0:.3e} [s] "
-                  f"(host clock, without a device sync)")
-        return self._finish_batch(idx_global, x_batch, w_rchq, t0,
-                                  return_weights)
+        Returns X_batch (batch_size, d); (global_indices, X_batch) for a
+        dataset domain; (w, X_batch) with return_weights=True. calc_obj:
+        optional callable X -> (N,) acquisition values to push within the
+        quadrature constraints. recycle_prior=False resets a continuous
+        proposal to the domain prior at every call whose model holds new
+        observations (should_reset_prior).
 
-    def step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Sober.step (refit + acquisition as one program) is not ported "
-            "yet (ROADMAP.md queue 1, item 8): fit the GP, call update_model, "
-            "then next_batch")
+        polish: the exploit polish (no reference analogue): the
+        lowest-weight batch point is replaced by the best of 8 projected-Adam
+        ascents of the posterior mean (gp.exact.polish_posterior_mean).
+        Only for pure-BO selection on a bounded continuous proposal:
+        quadrature batches (return_weights) stay recombination-exact, and
+        calc_obj already spends the batch's degree of freedom.
+
+        verbose: print the stages, each timed by the host clock after a
+        device sync (last_timings keeps them)."""
+        t0 = time.monotonic()
+        self.last_reset = False
+        if self.label != "dataset" and self.should_reset_prior(
+                batch_size, recycle_prior):
+            if verbose:
+                print("The prior was initialised.")
+            self._mark_reset()
+        return self._acquire(n_rec, n_nys, batch_size, calc_obj,
+                             return_weights, verbose, polish, t0)
+
+    def step(self, x_obs, y_obs, n_rec: int, n_nys: int, batch_size: int,
+             cfg: GPConfig | None = None, optimiser: str = "adam",
+             bucket: int = 128, recycle_prior: bool = True,
+             return_weights: bool = False, polish: bool = False,
+             warm_start: bool = False):
+        """One BO iteration: the reset heuristic on y_obs, a bucket-padded
+        GP MAP refit on (x_obs, y_obs), update_model, and the acquisition
+        of next_batch. The JAX package traces this into one program; it is
+        equivalent to fit_gp_padded -> update_model -> next_batch.
+
+        warm_start: start the refit from the current model's hypers
+        (gp.exact.raw_params_from_state), or cold when their shapes do not
+        match `cfg` (an isotropic state under an ARD cfg)."""
+        if self.fbgp or self.is_bq:
+            raise TypeError(
+                "Sober.step refits a plain exact GP and would replace this "
+                "sampler's FBGP/BQ model; refit it explicitly and call "
+                "update_model + next_batch")
+        t0 = time.monotonic()
+        self.last_reset = False
+        cfg = GPConfig() if cfg is None else cfg
+        x_obs = torch.as_tensor(x_obs, dtype=torch.float32, device=self.keys.device)
+        y_obs = torch.as_tensor(y_obs, dtype=torch.float32,
+                                device=self.keys.device).reshape(-1)
+        if self.label != "dataset" and self.should_reset_prior(
+                batch_size, recycle_prior, targets=y_obs.cpu().numpy()):
+            self._mark_reset()
+        params0 = (self._warm_start_params(cfg, x_obs.shape[1]) if warm_start
+                   else None)
+        self.update_model(fit_gp_padded(x_obs, y_obs, cfg, optimiser=optimiser,
+                                        bucket=bucket, params0=params0))
+        return self._acquire(n_rec, n_nys, batch_size, None, return_weights,
+                             False, polish, t0)
 
     def step_fbgp(self, *args, **kwargs):
         raise NotImplementedError(
             "Sober.step_fbgp is not ported yet (ROADMAP.md queue 1, item 12)")
 
-    def _finish_batch(self, idx_global, x_batch, w_rchq, t0,
-                      return_weights: bool):
-        """Tail of next_batch: the fingerprint check (the one host read of
-        the flag that the Tanimoto Grams' packs raise), timings and the
-        return value."""
-        check_fingerprints(self.prior.device)
-        total = time.monotonic() - t0
-        self.last_timings = {"fused_iteration": total, "total": total}
+    # -- the acquisition -------------------------------------------------------
+
+    def _acquire(self, n_rec, n_nys, batch_size, calc_obj, return_weights,
+                 verbose, polish, t0):
+        """Candidates, recombination, the polish; the tail of next_batch
+        and step."""
+        def mark():
+            if verbose and self.keys.device.type == "cuda":
+                torch.cuda.synchronize(self.keys.device)
+            return time.monotonic()
+
+        idx_global = None
+        if self.label == "dataset":
+            idx_global, x_batch, w_rchq = self._fused_dataset_iteration(
+                n_rec, n_nys, batch_size, self.dataset_pruning,
+                calc_obj=calc_obj)
+            # the one host read of the flag the Tanimoto Grams' packs raise
+            check_fingerprints(self.prior.device)
+            t2 = mark()
+            self.last_timings = {"fused_iteration": t2 - t0}
+        else:
+            x_cand, x_nys, weights = self.sampling_candidates(n_rec, n_nys)
+            t1 = mark()
+            idx, w_rchq = self.sampling_recombination(
+                x_cand, x_nys, weights, batch_size, calc_obj=calc_obj)
+            x_batch = x_cand[idx]
+            self.last_npos = torch.sum(weights > 0)
+            t2 = mark()
+            self.last_timings = {"candidates": t1 - t0,
+                                 "recombination": t2 - t1}
         self.last_path = "fused"
+        if self._polish_eligible(polish, calc_obj, return_weights):
+            x_batch = self._exploit_polish(x_batch)
+            self.last_timings["polish"] = mark() - t2
+        self.last_timings["total"] = mark() - t0
+        if verbose:
+            print("--- " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                      self.last_timings.items()) + " [s]")
         if return_weights:
             return w_rchq, x_batch
-        return idx_global, x_batch
+        if idx_global is not None:
+            return idx_global, x_batch
+        return x_batch
+
+    def _warm_start_params(self, cfg: GPConfig, n_dims: int):
+        """The current model's raw hypers, or None when their shapes differ
+        from what `cfg` would initialise."""
+        state = self.pi.model
+        if not isinstance(state, GPState):
+            return None
+        cand = raw_params_from_state(state)
+        ref = init_params(cfg, n_dims, device=state.x.device)
+        if any(a.shape != b.shape for a, b in zip(cand, ref)):
+            return None
+        return cand
+
+    def _polish_eligible(self, polish: bool, calc_obj,
+                         return_weights: bool) -> bool:
+        """The exploit polish's guard (see next_batch's `polish`)."""
+        return (polish and calc_obj is None and not return_weights
+                and self.label == "continuous"
+                and not (self.fbgp or self.is_bq)
+                and isinstance(self.pi.model, GPState)
+                and getattr(self.prior, "bounds", None) is not None)
+
+    def _exploit_polish(self, x_batch: torch.Tensor) -> torch.Tensor:
+        """Replace the lowest-weight batch point with the best of 8
+        posterior-mean ascents, started at the incumbent and the 7 heaviest
+        batch points (recombination returns those first)."""
+        state: GPState = self.pi.model
+        y = state.y
+        if state.mask is not None:
+            y = torch.where(state.mask > 0, y, -torch.inf)
+        incumbent = state.x[torch.argmax(y)]
+        n_head = min(7, x_batch.shape[0] - 1)
+        starts = torch.cat([incumbent[None, :], x_batch[:n_head]])
+        lo, hi = self.prior.bounds[0], self.prior.bounds[1]
+        x_pol, mu_pol = polish_posterior_mean(state, starts, lo, hi)
+        x_batch = x_batch.clone()
+        x_batch[-1] = x_pol[torch.argmax(mu_pol)]
+        return x_batch

@@ -5,10 +5,11 @@ GPState is a NamedTuple of tensors (hypers, data, the cached factor of
 Kxx + sigma^2 I, alpha and its explicit inverse L^-1). Hypers are MAP-fitted
 by an L-BFGS ladder that falls back to Adam. The fit runs eagerly, with
 Python control flow where the JAX package had lax.scan and lax.cond, and
-host syncs where a branch needs a value. Everything after the fit runs
-under no_grad and reaches the RBF and Tanimoto Grams through their CUDA
-kernels; so does the fit's Tanimoto Gram, whose inputs never need a
-gradient.
+host syncs where a branch needs a value. Everything after the fit reaches
+the RBF and Tanimoto Grams through their CUDA kernels; so does the fit's
+Tanimoto Gram, whose inputs never need a gradient. The exploit polish
+(`polish_posterior_mean`) differentiates the posterior mean in its inputs,
+through the RBF kernel's autograd Function.
 
 Only the zero prior mean is ported; the parabolic (BOLFI) mean waits.
 """
@@ -375,6 +376,23 @@ def build_state(params: GPParams, x: torch.Tensor, y_raw: torch.Tensor,
                    mask, linv)
 
 
+def raw_params_from_state(state: GPState) -> GPParams:
+    """Invert `materialize`: the raw GPParams of a fitted state, to
+    warm-start the next refit (`fit_gp(..., params0=...)`). The noise is
+    clamped strictly inside its interval, where the inverse is finite."""
+    cfg = state.config
+    kp = state.kernel.params
+    raw_os = _inv_softplus(torch.clamp_min(kp["outputscale"], 1e-20))
+    if "lengthscale" in kp:
+        raw_ls = _inv_softplus(torch.clamp_min(kp["lengthscale"], 1e-20))
+    else:
+        raw_ls = torch.zeros((), dtype=state.x.dtype, device=state.x.device)
+    lo, hi = cfg.noise_lo, cfg.noise_hi
+    noise = torch.clamp(state.noise, lo + 1e-9 * (hi - lo), hi - 1e-9 * (hi - lo))
+    return GPParams(raw_lengthscale=raw_ls, raw_outputscale=raw_os,
+                    raw_noise=_inv_interval(noise, lo, hi))
+
+
 def fit_gp(x: torch.Tensor, y: torch.Tensor, cfg: Optional[GPConfig] = None,
            optimiser: str = "lbfgs", mask: Optional[torch.Tensor] = None,
            params0: Optional[GPParams] = None, **cfg_kwargs) -> GPState:
@@ -445,6 +463,39 @@ def predictive_covariance(state: GPState, x: torch.Tensor,
         a = torch.linalg.solve_triangular(state.chol, kxX.T, upper=False)
         b = torch.linalg.solve_triangular(state.chol, kXy, upper=False)
     return kxy - a.T @ b
+
+
+def posterior_mean(state: GPState, xq: torch.Tensor) -> torch.Tensor:
+    """Posterior mean at xq on the standardized scale, differentiable in
+    xq (on the card through the RBF kernel's autograd Function)."""
+    kqx = state.kernel.gram(xq, state.x)
+    if state.mask is not None:
+        kqx = kqx * state.mask[None, :]
+    return mean_value(state.config, xq) + kqx @ state.alpha
+
+
+def polish_posterior_mean(state: GPState, starts: torch.Tensor,
+                          lo: torch.Tensor, hi: torch.Tensor,
+                          n_steps: int = 50, lr: float = 0.02):
+    """Multi-start projected-Adam ascent of the posterior mean inside the
+    box [lo, hi], each step scaled by the box's span; returns (polished
+    points, their posterior means). The exploit polish of
+    Sober.next_batch(polish=True) (sober_tpu/gp/exact.py:617)."""
+    span = hi - lo
+    x = starts.detach().clone()
+    m, v = torch.zeros_like(x), torch.zeros_like(x)
+    for t in range(1, n_steps + 1):
+        xg = x.requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(-torch.sum(posterior_mean(state, xg)), xg)
+        x = xg.detach()
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        mh = m / (1.0 - 0.9 ** t)
+        vh = v / (1.0 - 0.999 ** t)
+        x = x - lr * span[None, :] * mh / (torch.sqrt(vh) + 1e-8)
+        x = torch.clamp(x, lo[None, :], hi[None, :])
+    return x, predict(state, x, include_noise=False)[0]
 
 
 def posterior_max_mean(state: GPState) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Carry a fitted GP and a dataset prior across from the JAX package.
+"""Carry a fitted GP and a prior across from the JAX package.
 
 A `sober_tpu` `GPParams` / `GPState` (and the `Kernel` inside) goes across
 as a dict of numpy arrays (`gp_state_to_numpy` makes one from a JAX state);
@@ -7,8 +7,11 @@ given device (CUDA unless given; `config.resolve_device`). The dict keys are the
 of `sober_tpu.gp.exact.GPParams` / `GPState`, with the kernel given as
 `kernel_name` and `kernel_params` (a Tanimoto kernel's hold only
 `outputscale`) and the config as a dict of `GPConfig` fields. A Tanimoto
-GP's params keep their unused `raw_lengthscale`, field for field. Nothing
-here imports jax.
+GP's params keep their unused `raw_lengthscale`, field for field. A
+continuous prior (Uniform, Gaussian, or a WKDE's parameter dict) goes
+across the same way (`continuous_prior_to_numpy`,
+`continuous_prior_from_numpy`), so that both packages start from the same
+proposal, Sobol offset included. Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -21,7 +24,10 @@ import torch
 from .config import resolve_device
 from .gp.exact import GPConfig, GPParams, GPState
 from .ops.kernels import Kernel
+from .priors.continuous import Gaussian, Uniform
 from .priors.dataset import DatasetPrior
+from .priors.wkde import WeightedKernelDensityEstimation
+from .utils.sobol import sobol_state
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(GPConfig)}
 _STATE_ARRAYS = ("noise", "x", "y", "y_mean", "y_std", "chol", "alpha", "mask",
@@ -89,3 +95,38 @@ def dataset_prior_from_numpy(features, targets, available=None,
         prior.available = torch.as_tensor(np.asarray(available, bool),
                                           device=prior.device)
     return prior
+
+
+def continuous_prior_to_numpy(prior) -> dict:
+    """The dict `continuous_prior_from_numpy` reads, from a sober_tpu
+    Uniform, Gaussian or WeightedKernelDensityEstimation (told apart by
+    their attributes), with arrays read by np.asarray."""
+    arr = lambda a: None if a is None else np.asarray(a)
+    if hasattr(prior, "_sobol"):
+        sv, shift, bits = prior._sobol
+        return {"family": "uniform", "bounds": arr(prior.bounds), "sv": arr(sv),
+                "shift": arr(shift), "bits": int(bits),
+                "offset": int(prior._offset), "qmc": bool(prior.qmc)}
+    if hasattr(prior, "_params"):
+        return {"family": "wkde", "n_dims": prior.n_dims, "n_kde": prior.n_kde,
+                "bounds": arr(prior.bounds),
+                "params": {k: arr(v) for k, v in prior._params.items()}}
+    return {"family": "gaussian", "mu": arr(prior.mu), "cov": arr(prior.cov)}
+
+
+def continuous_prior_from_numpy(d: dict, device=None):
+    """The port's Uniform (its Sobol direction numbers, shift and offset
+    carried over), Gaussian (its factor recomputed from cov) or WKDE (its
+    parameters carried over) from a dict of numpy arrays."""
+    device = resolve_device(device)
+    if d["family"] == "uniform":
+        prior = Uniform(_tensor(d["bounds"], device), qmc=d["qmc"], device=device)
+        prior._sobol = sobol_state(d["sv"], d["shift"], d["bits"], device)
+        prior._offset = d["offset"]
+        return prior
+    if d["family"] == "gaussian":
+        return Gaussian(_tensor(d["mu"], device), _tensor(d["cov"], device),
+                        device=device)
+    params = {k: _tensor(v, device) for k, v in d["params"].items()}
+    return WeightedKernelDensityEstimation.from_params(
+        params, d["n_dims"], _tensor(d["bounds"], device), d["n_kde"])

@@ -5,6 +5,14 @@ On a CUDA tensor it launches the hand-written kernel of `csrc/rbf_gram.cu`
 or raises; on a CPU tensor it computes `rbf_gram_reference`, the plain
 PyTorch version (the norm-trick form of `sober_tpu/ops/kernels.py:rbf_gram`).
 Like the Pallas kernel, it takes any feature width d >= 1.
+
+Gradients with respect to x and y (the exploit polish ascends the posterior
+mean in its inputs) go through `_RbfGramFn`: its forward launches the
+kernel and its backward is plain PyTorch on the saved Gram
+(`rbf_gram_backward`). The lengthscale and
+outputscale take no gradient here: the GP fit differentiates the
+reference (`neg_mll` through `KERNELS`), as the JAX package never
+differentiates its Pallas kernel.
 """
 from __future__ import annotations
 
@@ -37,20 +45,64 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise TypeError(f"rbf_gram: {name} must be float32, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"rbf_gram: {name} must be contiguous")
-    if t.requires_grad:
-        raise ValueError(
-            f"rbf_gram: {name} requires grad; the CUDA kernel has no backward "
-            "(use rbf_gram_reference where autograd must flow)")
+
+
+def rbf_gram_backward(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      ls: torch.Tensor, k: torch.Tensor, need_x: bool = True,
+                      need_y: bool = True):
+    """The gradients of sum(g * K) in x and y from the Gram K itself:
+    dL/dx_i = sum_j g_ij K_ij (y_j - x_i) / ls^2, and likewise in y."""
+    gk = g * k
+    inv = 1.0 / ls ** 2
+    gx = gy = None
+    if need_x:
+        gx = (gk @ y - torch.sum(gk, dim=1, keepdim=True) * x) * inv
+    if need_y:
+        gy = (gk.T @ x - torch.sum(gk, dim=0)[:, None] * y) * inv
+    return gx, gy
+
+
+class _RbfGramFn(torch.autograd.Function):
+    """The Gram of x and y on the card, differentiable in both: the forward
+    launches the kernel, the backward is `rbf_gram_backward` on the saved
+    Gram."""
+
+    @staticmethod
+    def forward(ctx, x, y, ls, os_):
+        k = _launch(x, y, ls, os_)
+        ctx.save_for_backward(x, y, ls, k)
+        return k
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, ls, k = ctx.saved_tensors
+        gx, gy = rbf_gram_backward(g, x, y, ls, k, *ctx.needs_input_grad[:2])
+        return gx, gy, None, None
 
 
 def rbf_gram(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(n, m) RBF Gram of x (n, d) and y (m, d); lengthscale scalar or (d,).
 
-    CPU tensors take the reference; CUDA tensors launch the kernel."""
+    CPU tensors take the reference; CUDA tensors launch the kernel, through
+    `_RbfGramFn` when x or y requires grad."""
     if x.device.type == "cpu":
         return rbf_gram_reference(params, x, y)
     if x.device.type != "cuda":
         raise ValueError(f"rbf_gram: unsupported device {x.device}")
+    ls, os_ = params["lengthscale"], params["outputscale"]
+    if ls.requires_grad or os_.requires_grad:
+        raise ValueError(
+            "rbf_gram: the lengthscale or outputscale requires grad, which "
+            "the kernel does not give (use rbf_gram_reference where autograd "
+            "must reach them)")
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        return _RbfGramFn.apply(x, y, ls, os_)
+    return _launch(x, y, ls, os_)
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor, ls: torch.Tensor,
+            os_: torch.Tensor) -> torch.Tensor:
+    """Check the operands and launch the kernel on the current stream."""
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(
             f"rbf_gram: need x (n, d) and y (m, d), got {tuple(x.shape)} "
@@ -59,8 +111,6 @@ def rbf_gram(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     m = y.shape[0]
     if d < 1:
         raise ValueError(f"rbf_gram: d={d}, need at least one feature")
-    ls = params["lengthscale"]
-    os_ = params["outputscale"]
     if ls.numel() not in (1, d) or os_.numel() != 1:
         raise ValueError(
             f"rbf_gram: lengthscale has {ls.numel()} entries for d={d}, "

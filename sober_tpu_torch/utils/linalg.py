@@ -1,9 +1,31 @@
-"""Numerics-safety linear algebra (port of sober_tpu/utils/linalg.py)."""
+"""Numerics-safety linear algebra (port of sober_tpu/utils/linalg.py):
+NaN/Inf scrubbing, PSD repair with escalating jitter, the Gaussian log
+density (SOBER/_utils.py:81-199)."""
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from ..config import settings
+
+
+def remove_anomalies(y: torch.Tensor, floor: float | None = None) -> torch.Tensor:
+    """Clamp NaN/Inf/very-negative observations to `floor`
+    (SOBER/_utils.py:88-99); by default -sqrt(float32 max)."""
+    if floor is None:
+        floor = -math.sqrt(float(np.finfo(np.float32).max))
+    y = torch.nan_to_num(y, nan=floor, posinf=floor, neginf=floor)
+    return torch.clamp_min(y, floor)
+
+
+def remove_anomalies_uniform(x: torch.Tensor, uni_min: torch.Tensor,
+                             uni_max: torch.Tensor) -> torch.Tensor:
+    """Row mask of inputs inside the closed box [uni_min, uni_max]
+    (SOBER/_utils.py:101-115)."""
+    return (torch.all(x >= uni_min[None, :], dim=1)
+            & torch.all(x <= uni_max[None, :], dim=1))
 
 
 def symmetrize(a: torch.Tensor) -> torch.Tensor:
@@ -44,3 +66,40 @@ def jitter_cholesky(a: torch.Tensor, initial_jitter: float = 0.0,
     if not ok:
         chol = torch.diag(torch.sqrt(torch.clamp_min(torch.diagonal(a), 1e-30)))
     return chol, jit_val
+
+
+def make_psd(a: torch.Tensor) -> torch.Tensor:
+    """`a` symmetrized and scrubbed, plus the jitter that jitter_cholesky
+    needs to factor it (SOBER/_utils.py:131-157)."""
+    a = symmetrize(torch.nan_to_num(a))
+    _, jit_val = jitter_cholesky(a)
+    return a + jit_val * torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+
+
+def solve_psd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve a x = b for PSD a through the jittered Cholesky factor; b is
+    (n,) or (n, k)."""
+    chol, _ = jitter_cholesky(a)
+    if b.dim() == 1:
+        return torch.cholesky_solve(b[:, None], chol)[:, 0]
+    return torch.cholesky_solve(b, chol)
+
+
+def mvn_logpdf(x: torch.Tensor, mean: torch.Tensor,
+               chol: torch.Tensor) -> torch.Tensor:
+    """log N(x; mean, L L^T) for x of shape (..., d)."""
+    d = mean.shape[-1]
+    diff = x - mean
+    flat = diff.reshape(-1, d)
+    w = torch.linalg.solve_triangular(chol, flat.T, upper=False)   # (d, N)
+    maha = torch.sum(w * w, dim=0).reshape(diff.shape[:-1])
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+    return -0.5 * (maha + logdet + d * math.log(2.0 * math.pi))
+
+
+def safe_mvn_prob(mean: torch.Tensor, cov: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """N(x; mean, cov) with the covariance PSD-repaired
+    (SOBER/_utils.py:171-194)."""
+    chol, _ = jitter_cholesky(cov)
+    return torch.exp(mvn_logpdf(x, mean, chol))

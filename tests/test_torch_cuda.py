@@ -258,3 +258,55 @@ def test_dataset_pool_is_packed_once(cuda):
     bad = DatasetPrior(feats, targets, device=cuda)
     with pytest.raises(ValueError, match="only 0 and 1"):
         tanimoto_similarity(bad.features, x_obs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,ard", [(8, 512, False), (8, 512, True),
+                                     (500, 20000, False)])
+def test_rbf_gradient_matches_reference_on_card(cuda, n, m, ard):
+    """The autograd Function (kernel forward, plain backward from the saved
+    Gram) against autograd through the reference, in x and y: relative
+    1e-5 of the largest gradient entry."""
+    rng = np.random.default_rng(n + m)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    x, y = t(rng.uniform(0, 10, (n, 4))), t(rng.uniform(0, 10, (m, 4)))
+    p = {"lengthscale": t(rng.uniform(1.0, 3.0, 4)) if ard else t(2.0),
+         "outputscale": t(1.3)}
+    g = t(rng.normal(size=(n, m)))
+    grads = []
+    for fn in (rbf_gram, rbf_gram_reference):
+        a, b = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        before = rbf_gram.launches
+        torch.sum(fn(p, a, b) * g).backward()
+        assert rbf_gram.launches == before + (fn is rbf_gram)
+        grads.append((a.grad, b.grad))
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_continuous_next_batch_on_card(cuda):
+    """Sober on a Uniform proposal over Shekel's box, on the card: the RBF
+    Gram and CAR launch, the proposal moves on to a WKDE, and the batches
+    (plain, weighted, polished, and from step) keep their invariants."""
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.priors import WeightedKernelDensityEstimation
+    from sober_tpu_torch.tasks.synthetic import setup_shekel
+
+    prior, f = setup_shekel(device=cuda)
+    x = prior.sample(None, 60)
+    y = f(x)
+    sober = Sober(prior, fit_gp_padded(x, y))
+    rbf0, car0 = rbf_gram.launches, car_eliminate.launches
+    w, xb = sober.next_batch(20000, 200, 20, return_weights=True)
+    assert rbf_gram.launches > rbf0 and car_eliminate.launches > car0
+    assert isinstance(sober.prior, WeightedKernelDensityEstimation)
+    assert xb.shape == (20, 4) and bool(torch.isfinite(xb).all())
+    # a WKDE clips its last outside draws onto the box: the closed box
+    assert bool(((xb >= 0) & (xb <= 10)).all())
+    assert bool((w >= 0).all()) and abs(float(w.sum()) - 1.0) < 1e-3
+    xb = sober.next_batch(20000, 200, 20, polish=True)
+    assert bool(((xb >= 0) & (xb <= 10)).all()) and bool(torch.isfinite(xb).all())
+    x, y = torch.cat([x, xb]), torch.cat([y, f(xb)])
+    xb = sober.step(x, y, 20000, 200, 20, warm_start=True)
+    assert xb.shape == (20, 4) and bool(((xb >= 0) & (xb <= 10)).all())

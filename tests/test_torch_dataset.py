@@ -270,19 +270,26 @@ def test_next_batch_matches_jax(carried):
 
 
 def test_sober_rejects_what_is_not_ported(carried):
+    """What is still to port raises and names its ROADMAP.md item: the
+    discrete domains (item 10), the TruncatedGaussian proposal (item 13)
+    and step_fbgp (item 12)."""
+    from sober_tpu.priors.continuous import TruncatedGaussian
+
     feats, targets, available, _, ts = carried
     prior = dataset_prior_from_numpy(feats, targets, available, device="cpu")
     sober = Sober(prior, ts)
-    with pytest.raises(NotImplementedError):
-        sober.next_batch(N_REC, N_NYS, BATCH, polish=True)
-    with pytest.raises(NotImplementedError):
-        sober.step(None, None, N_REC, N_NYS, BATCH)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sober.step_fbgp(None, None, None, N_REC, N_NYS, BATCH)
 
-    class Continuous:
-        type, device = "continuous", torch.device("cpu")
+    class Binary:
+        type, device = "binary", torch.device("cpu")
 
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        Sober(Continuous(), ts)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Sober(Binary(), ts)
+    tgauss = TruncatedGaussian(jnp.zeros(2), jnp.eye(2),
+                               jnp.asarray([[-1.0, -1.0], [1.0, 1.0]]))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        Sober(tgauss, ts)
     with pytest.raises(ValueError):
         sober.sampling_datasets(N_NYS, N_NYS)
 

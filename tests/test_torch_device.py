@@ -6,13 +6,14 @@ import numpy as np
 import pytest
 import torch
 
-from sober_tpu_torch import config, interop
+from sober_tpu_torch import Sober, config, interop
 from sober_tpu_torch.core.sampler import RecombinationSampler
 from sober_tpu_torch.gp import exact
 from sober_tpu_torch.ops import kernels
-from sober_tpu_torch.priors import dataset
+from sober_tpu_torch.priors import continuous, dataset, wkde
+from sober_tpu_torch.tasks import synthetic
 from sober_tpu_torch.tasks.drug import setup_malaria, setup_solvent
-from sober_tpu_torch.utils import prng
+from sober_tpu_torch.utils import prng, sobol
 
 
 def test_resolve_device_defaults_to_cuda():
@@ -44,7 +45,20 @@ def _tensors(obj):
         return list(obj.params.values())
     if isinstance(obj, tuple):
         return [t for x in obj for t in _tensors(x)]
+    if isinstance(obj, continuous.Uniform):
+        return [obj.bounds, *obj._sobol[:2]]
+    if isinstance(obj, continuous.Gaussian):
+        return [obj.mu, obj.cov, obj.chol]
+    if isinstance(obj, wkde.WeightedKernelDensityEstimation):
+        return [obj.bounds, *obj._params.values()]
+    if callable(obj):                          # a task's objective
+        return []
     return [obj.features, obj.true_targets, obj.available]
+
+
+def _cpu_state():
+    x = torch.rand((8, 2))
+    return exact.fit_gp(x, x.sum(1), exact.GPConfig(fit_iters=2))
 
 
 # (module whose resolve_device the constructor calls, the call)
@@ -61,6 +75,17 @@ CONSTRUCTORS = {
         _raw_params())),
     "init_params": (exact, lambda: exact.init_params(exact.GPConfig(), 3)),
     "make_kernel": (kernels, lambda: kernels.make_kernel("rbf", n_dims=3, ard=True)),
+    "sobol_engine": (sobol, lambda: sobol.sobol_engine(3)[:2]),
+    "Uniform": (continuous, lambda: continuous.Uniform([[0.0, 0.0], [1.0, 1.0]])),
+    "Gaussian": (continuous, lambda: continuous.Gaussian([0.0, 0.0], np.eye(2))),
+    "WeightedKernelDensityEstimation": (wkde, lambda: wkde.WeightedKernelDensityEstimation(
+        np.random.default_rng(0).uniform(size=(20, 2)), np.ones(20), 2,
+        bounds=[[0.0, 0.0], [1.0, 1.0]])),
+    "continuous_prior_from_numpy": (interop, lambda: interop.continuous_prior_from_numpy(
+        {"family": "gaussian", "mu": np.zeros(2), "cov": np.eye(2)})),
+    "setup_shekel": (continuous, lambda: synthetic.setup_shekel()),
+    "Sober (continuous)": (continuous, lambda: Sober(
+        continuous.Uniform([[0.0, 0.0], [1.0, 1.0]]), _cpu_state())),
 }
 
 
