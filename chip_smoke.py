@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Four paths. The first is one exact-GP batch-BO iteration on a continuous
+Six paths. The first is one exact-GP batch-BO iteration on a continuous
 domain: a warm-started MAP refit of the GP hypers, the posterior cache, the
 incumbent eta, and the fused acquisition (pi weights, Nystrom features, the
 halving tree of Caratheodory eliminations). The second is one
@@ -12,13 +12,18 @@ The third is the continuous Sober loop at examples/shekel.py's width:
 fit_gp_padded -> update_model -> Sober.next_batch(200000, 500, 100) on
 Shekel over [0, 10]^4 from a Sobol Uniform proposal that becomes a WKDE,
 then Sober.step with a warm start and a polished batch. The fourth is the
-quick-start Branin gate of tests/test_acceptance.py. The script
+quick-start Branin gate of tests/test_acceptance.py. The fifth is
+bench.py:bench_ising's warm-started Sober.step on the Ising edge masks (24
+binary dimensions, n_rec 200,000, n_nys 500, batch 100, 500 observations);
+the sixth the other discrete and mixed configs of examples/ (Ackley,
+Rosenbrock, pest control, MaxSAT). The script
 
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
   1. builds the hand-written kernels from sober_tpu_torch/csrc;
   2. holds the RBF Gram kernel to its plain PyTorch reference at every
-     shape the continuous iterations launch it at (and at d = 100), and
+     shape the continuous iterations launch it at (and at the Ising step's
+     d = 24 strips and at d = 100), and
      times both, with torch's fill_ of the same output as a yardstick of
      the card's write rate beside each strip; and holds the gradient of its
      autograd Function (the polish's route) to the reference's;
@@ -42,11 +47,19 @@ quick-start Branin gate of tests/test_acceptance.py. The script
      error below 5e-3), with its stage split, launches, host reads, peak
      memory and device-busy share;
  10. runs the Branin gate: seeds 0, 1 and 2 must each reach 10.59;
+ 11. runs the Ising step (a warm-up and 5 timed), each batch checked (0/1
+     values, weights >= 0 summing to 1, indices in range, moment error
+     below 5e-3), with its stage split, launches, host reads, peak memory
+     and device-busy share;
+ 12. runs 3 batches of each discrete flow, each batch checked (legal
+     values, weights, moment error), Rosenbrock's best rising on seeds 0
+     and 1, each best beside the JAX package's record;
+ 13. holds the RBF and CAR kernels at every shape phases 9-12 launched;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises, so the
 exit code is non-zero and no result line is printed. Inputs are made from
-numpy seeds; nothing is read from outside the repository.
+numpy and torch seeds; nothing is read from outside the repository.
 """
 from __future__ import annotations
 
@@ -58,6 +71,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -95,6 +109,19 @@ SHEKEL = (100, 200_000, 500, 100, 4)
 # the quick-start gate (tests/test_acceptance.py): seeds, initial points,
 # n_rec, n_nys, batch, batches at most, the value each seed must reach
 BRANIN = ((0, 1, 2), 10, 20_000, 500, 30, 8, 10.59)
+# the Ising step of bench.py:bench_ising: n_rec, n_nys, batch, observations
+ISING = (200_000, 500, 100, 500)
+# the RBF strips of one Ising step at d = 24 (n, m): the pi sweep over the
+# pool against the 512 padded observations, recombination's K(nys, pool)
+ISING_STRIPS = ((200_000, 512), (500, 200_000))
+# the other discrete and mixed configs of examples/, each run for
+# FLOW_ITERS batches: (task, setup, seed, n_init, batch, n_rec, n_nys)
+FLOWS = (("ackley", "setup_ackley", 0, 100, 200, 20_000, 500),
+         ("rosenbrock", "setup_rosenbrock", 0, 100, 100, 20_000, 500),
+         ("rosenbrock", "setup_rosenbrock", 1, 100, 100, 20_000, 500),
+         ("pest", "setup_pest", 0, 100, 100, 100_000, 500),
+         ("maxsat", "setup_maxsat", 0, 100, 100, 20_000, 500))
+FLOW_ITERS = 3
 # where the TPU kernels live that the CUDA kernels replace (the bit pack
 # computes the row sums |x| and |y| of the Pallas Tanimoto kernel)
 REPLACES = {"rbf_gram": "sober_tpu/ops/pallas_kernels.py:131",
@@ -174,9 +201,10 @@ def phase_build() -> None:
 
 def phase_rbf(summary: dict) -> None:
     """The RBF kernel against its reference at every (n, m, d) the
-    continuous iterations launch, scalar and ARD lengthscales, and at
-    d = 100 (the first port refused d > 64); device time per iteration of
-    each config, summed over its launches."""
+    continuous iterations launch, at the Ising step's d = 24 strips, and at
+    d = 100 (the first port refused d > 64), scalar and ARD lengthscales;
+    device time per iteration of each continuous config, summed over its
+    launches."""
     from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
 
     rng = np.random.default_rng(1)
@@ -184,6 +212,7 @@ def phase_rbf(summary: dict) -> None:
     cases = [(name, d, n, m, k) for name, _, _, _, d, _, _ in CONFIGS
              for n, m, k in RBF_SHAPES[name]]
     cases.append(("width", 100, 512, 65_536, 0))
+    cases += [("ising_d24", 24, n, m, 0) for n, m in ISING_STRIPS]
     per_iteration = {}
     for config, d, n, m, launches in cases:
         # at d = 100, coordinates in [-0.3, 0.3] keep the entries far from 0
@@ -228,6 +257,10 @@ def phase_rbf(summary: dict) -> None:
                 acc = per_iteration.setdefault(config, {"ms": 0.0, "bound_ms": 0.0})
                 acc["ms"] += launches * ms
                 acc["bound_ms"] += launches * bound
+            if config == "ising_d24" and not ard:
+                summary.setdefault("rbf_gram_ising_d24", []).append(
+                    {"shape": [n, m, d], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "store_library_ms": store_ms})
             if (n, m, d, ard) == (512, 65_536, 10, False):
                 summary["rbf_gram"] = {"max_abs_err": err, "ms": ms,
                                        "plain_ms": plain_ms, "bound_ms": bound,
@@ -950,20 +983,28 @@ def check_continuous_batch(sober, seen, xb, lo, hi, batch, label) -> dict:
     """A continuous batch: finite and inside the closed box (a WKDE clips
     the draws still outside after its rejection rounds onto the box, and
     its pdf counts the boundary as inside: sober_tpu/priors/wkde.py:84-117),
-    recombination weights >= 0 summing to 1, and the moment error below
-    5e-3. Returns the moment error and the count of points on the
-    boundary."""
+    and check_sober_batch's checks. Returns the moment error and the count
+    of points on the boundary."""
     require(tuple(xb.shape) == (batch, lo.shape[0]), f"{label}: batch shape")
-    require(bool(torch.isfinite(xb).all()), f"{label}: finite")
-    require(bool(((xb >= lo) & (xb <= hi)).all()), f"{label}: inside the box")
-    w = seen["w"]
-    require(bool((w >= 0).all()) and abs(float(w.sum()) - 1.0) < 1e-3,
-            f"{label}: w >= 0, sum w = {float(w.sum())}")
+    inside = lambda x: bool(((x >= lo) & (x <= hi)).all())
+    checked = check_sober_batch(sober, seen, xb, inside, batch, label)
+    checked["on_boundary"] = int(((xb == lo) | (xb == hi)).any(dim=1).sum())
+    return checked
+
+
+def check_sober_batch(sober, seen, xb, legal, batch, label) -> dict:
+    """A batch of next_batch or step: finite, legal (`legal(xb)`: inside the
+    box, or the discrete values a domain allows), recombination's indices
+    in range and distinct, its weights >= 0 summing to 1, and the moment
+    error below 5e-3. Returns the moment error."""
+    require(xb.shape[0] == batch and bool(torch.isfinite(xb).all()),
+            f"{label}: batch shape, finite")
+    require(legal(xb), f"{label}: values outside the domain")
+    check_batch(seen["idx"], seen["w"], seen["x_cand"].shape[0], batch, label)
     mom = moment_error(sober.kernel, seen["x_cand"], seen["x_nys"], seen["weights"],
-                       seen["idx"], w, batch)
+                       seen["idx"], seen["w"], batch)
     require(mom < 5e-3, f"{label}: moment error {mom}")
-    on_boundary = int(((xb == lo) | (xb == hi)).any(dim=1).sum())
-    return {"moment_err": mom, "on_boundary": on_boundary}
+    return {"moment_err": mom}
 
 
 def launch_counts() -> dict:
@@ -981,7 +1022,7 @@ def zero_counts() -> None:
 
 
 # (n, m, d, ard) of every RBF Gram and (m, q) of every CAR basis that the
-# Sober loop and the Branin gate launch
+# Sober loop, the Branin gate, the Ising step and the discrete flows launch
 PATH_RBF_SHAPES, PATH_CAR_SHAPES = set(), set()
 
 
@@ -1036,10 +1077,10 @@ def hold_rbf(params: dict, x, y, label: str) -> dict:
 
 def phase_path_shapes() -> None:
     """The RBF and CAR kernels against their plain versions at every shape
-    the Sober loop and the Branin gate launched, so every tile and variant
-    the host picked on that path is held on the card: each (n, m, d, ard)
-    Gram on coordinates in [-1, 1] (phase_rbf's draw), each (m, q) basis
-    on car_problem's."""
+    the Sober loop, the Branin gate, the Ising step and the discrete flows
+    launched, so every tile and variant the host picked on those paths is
+    held on the card: each (n, m, d, ard) Gram on coordinates in [-1, 1]
+    (phase_rbf's draw), each (m, q) basis on car_problem's."""
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
@@ -1228,6 +1269,178 @@ def phase_branin_gate(counts: dict) -> None:
     require(all(b >= target for b in bests), f"branin gate: bests {bests}")
 
 
+@contextlib.contextmanager
+def stage_clock(sober, stages: dict):
+    """Times the stages of Sober.step inside the block by host clock, each
+    ended by a device sync: the refit (fit_gp_padded as core/sober.py calls
+    it), the candidates and recombination; appends their ms to
+    stages[name]."""
+    mod = importlib.import_module("sober_tpu_torch.core.sober")
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    own = dict(vars(sober))
+    fit = mod.fit_gp_padded
+    mod.fit_gp_padded = timed("fit", fit)
+    for name in ("sampling_candidates", "sampling_recombination"):
+        setattr(sober, name, timed(name.split("_")[1], getattr(sober, name)))
+    try:
+        yield
+    finally:
+        mod.fit_gp_padded = fit
+        for name in ("sampling_candidates", "sampling_recombination"):
+            if name in own:
+                setattr(sober, name, own[name])
+            else:
+                delattr(sober, name)
+
+
+def phase_ising_step(counts: dict) -> None:
+    """bench.py:bench_ising on the port at full width: the Ising edge masks
+    (24 binary dimensions), 500 observations drawn from the prior with
+    their objective on the host, the GP fitted on the first 400; then, per
+    step, update_model(model) and step(x_all, y_all, 200000, 500, 100,
+    warm_start=True), one warm-up and ITERS timed. Each step's stages are
+    timed by host clock after a sync, its launches counted and its batch
+    checked; one more step counts the host reads (sync debug mode) and one
+    runs under torch.profiler for the device-busy share. pi's predict Gram
+    over the last pool is held to its plain version (`hold_rbf`)."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.tasks import setup_ising
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    n_rec, n_nys, batch, n_obs = ISING
+    dev = torch.device("cuda")
+    prior, objective = setup_ising(device=dev)
+    x_all = prior.sample(KeyRing(0, device=dev).next(), n_obs)
+    y_all = objective(x_all).cpu().numpy()          # the host's, as bench's
+    model = fit_gp_padded(x_all[:n_obs - batch],
+                          torch.as_tensor(y_all[:n_obs - batch], device=dev))
+    sober = Sober(prior, model, seed=0)
+    seen = capture_recombination(sober)
+    legal = lambda xb: bool(((xb == 0) | (xb == 1)).all())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stages, totals, moms, path = {}, [], [], {}
+    for it in range(1 + ITERS):                       # one warm-up
+        sober.update_model(model)
+        launches = {}
+        with counted(launches), stage_clock(sober, stages):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xb = sober.step(x_all, y_all, n_rec, n_nys, batch, warm_start=True)
+            torch.cuda.synchronize()
+            totals.append(1e3 * (time.perf_counter() - t0))
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        moms.append(check_sober_batch(sober, seen, xb, legal, batch,
+                                         f"ising step {it}")["moment_err"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pi_gram = hold_rbf(sober.pi.model.kernel.params, seen["x_cand"], sober.pi.model.x,
+                       "ising step")
+
+    def one_step():
+        sober.update_model(model)
+        return sober.step(x_all, y_all, n_rec, n_nys, batch, warm_start=True)
+    with counted(path):
+        with host_reads() as reads:
+            one_step()
+        profiled = busy_share(one_step)
+    add_counts(counts, path, "ising_step")
+    steps = 1 + ITERS + 2
+    median = lambda v: statistics.median(v[1:])
+    emit(phase="ising_step", n_rec=n_rec, n_nys=n_nys, batch=batch, n_obs=n_obs, d=24,
+         step_ms_median=median(totals), step_ms=totals,
+         stage_ms_median={k: median(v) for k, v in stages.items()}, stage_ms=stages,
+         launches_per_step={k: v / steps for k, v in path.items()},
+         host_reads_per_step=reads[0], pipeline_reads=sober.last_reads,
+         peak_mem_gib=peak, profile_one_step=profiled, moment_err_max=max(moms),
+         pi_gram=pi_gram, n_pos=int(sober.last_npos),
+         probs_range=[float(sober.prior.probs.min()), float(sober.prior.probs.max())],
+         best_observed=float(y_all.max()))
+
+
+def acceptance_record(task: str, seed: int):
+    """The JAX package's best value per iteration for (task, seed) in
+    docs/acceptance_runs.jsonl, and the config it ran, or None."""
+    path = Path(__file__).resolve().parent / "docs" / "acceptance_runs.jsonl"
+    for line in path.read_text().splitlines():
+        row = json.loads(line)
+        if (row["task"], row["seed"]) == (task, seed):
+            return {"cfg": row["cfg"], "best_per_iter": row["best_per_iter"][:FLOW_ITERS + 1]}
+    return None
+
+
+def phase_discrete_flows(counts: dict) -> None:
+    """The other discrete and mixed configs of examples/ (FLOWS) on the
+    card, FLOW_ITERS batches each of fit_gp_padded -> update_model ->
+    next_batch, every batch checked: legal values (a binary block in {0, 1},
+    categories among their values, a continuous block in the closed box),
+    weights >= 0 summing to 1, the moment error below 5e-3. Ackley's
+    continuous block must become a WKDE; Rosenbrock's best after its
+    batches must exceed its initial best (tests/test_sober_e2e.py:188-209).
+    Each run's best per batch is printed beside the JAX package's record,
+    which is no gate."""
+    import sober_tpu_torch.tasks as tasks
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.priors import WeightedKernelDensityEstimation
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    dev = torch.device("cuda")
+    zero_counts()
+    path = {}
+    for task, setup, seed, n_init, batch, n_rec, n_nys in FLOWS:
+        prior, objective = getattr(tasks, setup)(device=dev)
+        disc = getattr(prior, "prior_disc", prior)
+        nc = getattr(prior, "n_dims_cont", 0)
+        if hasattr(disc, "value_table"):
+            legal_disc = lambda xd, disc=disc: bool(
+                (xd[:, :, None] == disc.value_table[None]).any(-1).all())
+        else:
+            legal_disc = lambda xd: bool(((xd == 0) | (xd == 1)).all())
+        if nc:
+            lo, hi = prior.bounds
+            legal = lambda xb, lo=lo, hi=hi, nc=nc, ld=legal_disc: (
+                bool(((xb[:, :nc] >= lo) & (xb[:, :nc] <= hi)).all()) and ld(xb[:, nc:]))
+        else:
+            legal = legal_disc
+        x = prior.sample(KeyRing(seed, device=dev).next(), n_init)
+        y = objective(x)
+        sober = Sober(prior, fit_gp_padded(x, y), seed=seed)
+        seen = capture_recombination(sober)
+        bests, moms, t0 = [float(y.max())], [], time.perf_counter()
+        for it in range(FLOW_ITERS):
+            with counted(path):
+                sober.update_model(fit_gp_padded(x, y))
+                xb = sober.next_batch(n_rec, n_nys, batch)
+            moms.append(check_sober_batch(sober, seen, xb, legal, batch,
+                                             f"{task} {seed} batch {it}")["moment_err"])
+            x, y = torch.cat([x, xb]), torch.cat([y, objective(xb)])
+            bests.append(float(y.max()))
+        if task == "ackley":
+            require(isinstance(sober.prior.prior_cont, WeightedKernelDensityEstimation),
+                    "ackley: the continuous block never became a WKDE")
+        if task == "rosenbrock":
+            require(bests[-1] > bests[0], f"rosenbrock seed {seed}: best {bests}")
+        emit(phase="discrete_flow", task=task, seed=seed, n_init=n_init, batch=batch,
+             n_rec=n_rec, n_nys=n_nys, best_per_batch=bests, moment_err_max=max(moms),
+             seconds=time.perf_counter() - t0, proposal=type(sober.prior).__name__,
+             jax_record=acceptance_record(task, seed))
+    add_counts(counts, path, "discrete_flows")
+    emit(phase="discrete_flows", launches_on_path=path)
+
+
 def main() -> None:
     smi, sm_clock = phase_device()
     phase_build()
@@ -1247,6 +1460,8 @@ def main() -> None:
     phase_dataset_iteration(pool, targets, counts)
     phase_sober_loop(counts)
     phase_branin_gate(counts)
+    phase_ising_step(counts)
+    phase_discrete_flows(counts)
     phase_path_shapes()
     kernels = []
     for name in ("rbf_gram", "car_eliminate", "tanimoto_gram", "pack_bits"):
@@ -1262,6 +1477,8 @@ def main() -> None:
                         **{k: s[k] for k in ("gram_ms", "product_library_ms",
                                              "store_library_ms", "step_floor_ms")
                            if k in s}})
+    # the RBF Gram at the Ising step's d = 24 strips
+    kernels[0]["ising_d24_strips"] = summary["rbf_gram_ising_d24"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

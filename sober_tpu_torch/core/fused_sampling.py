@@ -1,21 +1,22 @@
 """The acquisition pipelines: the candidate pool, its pi weights, the
-proposal update and the Nystrom subset (port of the dataset and continuous
-families of sober_tpu/core/fused_sampling.py).
+proposal update and the Nystrom subset (port of
+sober_tpu/core/fused_sampling.py).
 
 The JAX package traces each family into one program beside a staged twin;
-the port runs one eager pipeline per family, with host branches where JAX
+the port runs one eager pipeline per domain, with host branches where JAX
 has lax.cond and lax.while_loop:
 
   * dataset (`fused_iteration_dataset`): pi over the whole pool ->
     adaptive top-k pruning -> Nystrom subset by inverse-weight resampling
     -> kernel recombination;
-  * continuous (`EmpiricalSampler.sampling_candidates`, from the parts
-    here: `pi_weights`, `refill`, `select_nys`): a Uniform (Sobol),
-    Gaussian or WKDE proposal -> a pool and its weights -> the
-    weight-health branch -> a WKDE refit -> refill rounds -> a KMeans
-    Nystrom subset.
-
-The discrete and mixed families wait for ROADMAP.md queue 1, item 10.
+  * every other label (`EmpiricalSampler.sampling_candidates`, from the
+    parts here: `draw`, `pi_weights`, `refill`, `select_nys`): a pool from
+    the proposal and its weights -> the weight-health branch -> the
+    proposal update -> refill rounds -> a Nystrom subset. `draw` is where
+    the families differ: a Uniform (Sobol), Gaussian or WKDE continuous
+    proposal, a Bernoulli or categorical one, or a continuous block times
+    either (the JAX package's _binary_pipeline, _discrete_pipeline and
+    _cont_branches, whose branch structure this is).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.kmeans import kmeans_resampling
+from ..priors.continuous import Uniform
 from ..utils.weights import (cleansing_weights, deweighted_resampling,
                              weighted_resampling)
 from .rchq import _top, recombination
@@ -79,11 +81,52 @@ def fused_iteration_dataset(pi: Callable, x_all: torch.Tensor,
 
 
 # ----------------------------------------------------------------------------
-# the continuous family
+# the proposal families
 # ----------------------------------------------------------------------------
 
 # rows resampled by weight before KMeans picks the Nystrom centroids
 NYS_POOL = 4096
+
+
+def _continuous_draw(prior, gen: torch.Generator, n: int,
+                     redraw: bool) -> torch.Tensor:
+    """n rows of a continuous proposal. Only a first draw follows (and
+    advances) a Uniform's Sobol sequence; its redraws are pseudo-random, as
+    the JAX pipeline's refill draws are."""
+    if redraw and isinstance(prior, Uniform):
+        return prior.scale(torch.rand((n, prior.n_dims), generator=gen,
+                                      device=prior.device))
+    return prior.sample(gen, n)
+
+
+def draw(prior, label: str, gen: torch.Generator, n: int, redraw: bool = False):
+    """A pool of n rows from the proposal of domain `label`: (x, xi, pdf).
+    x holds the values; xi, for the categorical labels, the same rows with
+    category indices (as floats) in the discrete block, else None; pdf the
+    proposal density. A discrete block's density is the exponential of
+    the summed log densities, continuous block included, as the JAX
+    pipeline computes it (sober_tpu/core/fused_sampling.py:_disc_logpdf
+    and _discrete_machinery): it underflows to 0 where that one does."""
+    if label == "continuous":
+        x = _continuous_draw(prior, gen, n, redraw)
+        return x, None, prior.pdf(x)
+    if label in ("binary", "categorical"):
+        disc, xc, lp = prior, None, 0.0
+    else:
+        disc = prior.prior_disc
+        xc = _continuous_draw(prior.prior_cont, gen, n, redraw)
+        lp = prior.prior_cont.logpdf(xc)
+    if label.endswith("categorical"):
+        xd, idx = disc.sample_both(gen, n)
+        lp = lp + disc.logpdf_indices(idx)
+        idx = idx.to(torch.float32)
+    else:
+        xd, idx = disc.sample(gen, n), None
+        lp = lp + disc.logpdf(xd)
+    if xc is None:
+        return xd, idx, torch.exp(lp)
+    xi = None if idx is None else prior._join(xc, idx)
+    return prior._join(xc, xd), xi, torch.exp(lp)
 
 
 def pi_weights(pi: Callable, x: torch.Tensor, pdf: torch.Tensor) -> torch.Tensor:

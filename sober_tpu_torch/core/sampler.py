@@ -1,15 +1,15 @@
 """Importance sampler: pi-weighted candidate pools and kernel recombination
 (port of sober_tpu/core/sampler.py; SOBER/_sampler.py).
 
-Two domains are ported. Dataset: pi over the whole (masked) pool, static
-top-k pruning and an inverse-weight Nystrom subset. Continuous: a Uniform
-(Sobol), Gaussian or learned WKDE proposal, the proposal refit, refill
-draws and a KMeans Nystrom subset. Each runs as one eager pipeline: the
-dataset one in core/fused_sampling.py, the continuous one in
-`sampling_candidates`, built from `sampling`, `recursive_sampling`,
-`update_prior` and `_select_nys`. The discrete and mixed domains wait for ROADMAP.md queue 1,
-item 10, the TruncatedGaussian proposal for item 13, and the JAX package's
-`mesh`/`schedule` arguments for item 16.
+Every domain label of the JAX package is ported. Dataset: pi over the
+whole (masked) pool, static top-k pruning and an inverse-weight Nystrom
+subset (core/fused_sampling.py). Continuous, binary, categorical,
+mixedbinary and mixedcategorical: a pool from the proposal, the proposal
+refit, refill draws and a Nystrom subset, as one eager pipeline,
+`sampling_candidates`, built from `sampling` (or `categorical_sampling`),
+`recursive_sampling`, `update_prior` and `_select_nys`. The
+TruncatedGaussian proposal waits for ROADMAP.md queue 1, item 13, and the
+JAX package's `mesh`/`schedule` arguments for item 16.
 """
 from __future__ import annotations
 
@@ -19,15 +19,20 @@ import torch
 
 from ..priors.base import BasePrior
 from ..priors.continuous import Gaussian, Uniform
+from ..priors.discrete import (BinaryPrior, CategoricalPrior,
+                               MixedBinaryPrior, MixedCategoricalPrior)
 from ..priors.wkde import WeightedKernelDensityEstimation
 from ..utils.prng import KeyRing
 from ..utils.weights import check_weights, deweighted_resampling
 from . import fused_sampling as fs
-from .prior_update import update_continuous_prior
+from .prior_update import (update_binary_prior, update_categorical_prior,
+                           update_continuous_prior, update_mixed_prior)
 from .rchq import recombination
 
 # the continuous proposals the pipeline takes
 CONTINUOUS = (Uniform, Gaussian, WeightedKernelDensityEstimation)
+LABELS = ("dataset", "continuous", "binary", "categorical", "mixedbinary",
+          "mixedcategorical")
 
 # dataset-domain pruning threshold (SOBER/_sampler.py:325-349)
 PRUNE_THRESH = 1e-3
@@ -53,8 +58,7 @@ class RecombinationSampler:
 
 
 class EmpiricalSampler(RecombinationSampler):
-    """pi-importance sampling pipeline (SOBER/_sampler.py:61-382), for a
-    dataset or continuous prior."""
+    """pi-importance sampling pipeline (SOBER/_sampler.py:61-382)."""
 
     def __init__(self, prior: BasePrior, pi, kernel: Callable,
                  thresh: int = 5, label: str = "mixedbinary", seed: int = 0):
@@ -63,11 +67,8 @@ class EmpiricalSampler(RecombinationSampler):
                 f"continuous prior {type(prior).__name__}: the Uniform, "
                 "Gaussian and WKDE proposals are ported; TruncatedGaussian "
                 "is ROADMAP.md queue 1, item 13")
-        if label not in ("dataset", "continuous"):
-            raise NotImplementedError(
-                f"domain label {label!r}: the dataset and continuous domains "
-                "are ported; the discrete and mixed samplers are ROADMAP.md "
-                "queue 1, item 10")
+        if label not in LABELS:
+            raise ValueError(f"domain label {label!r} is not one of {LABELS}")
         super().__init__(kernel, thresh=thresh, seed=seed,
                          device=getattr(prior, "device", None))
         self.thresh_initial = thresh
@@ -76,52 +77,103 @@ class EmpiricalSampler(RecombinationSampler):
         self.pi = pi
         self.label = label
         self.flag = False
-        # host reads of the last continuous candidate pipeline
+        # host reads of the last candidate pipeline
         self.last_reads = 0
 
-    # -- proposal management (continuous) -------------------------------------
+    # -- proposal management ---------------------------------------------------
 
     def initialise_prior(self):
         """Reset the proposal to the original domain prior
-        (SOBER/_sampler.py:87-111): a fresh Uniform over the original box
-        (its Sobol sequence from offset 0), or the original bounds-less
-        Gaussian itself."""
-        p = self.prior_initial
-        bounds = getattr(p, "bounds", None)
-        self.prior = p if bounds is None else Uniform(bounds, device=bounds.device)
+        (SOBER/_sampler.py:87-111), rebuilt from the original's attributes:
+        a fresh Uniform over the original box (its Sobol sequence from
+        offset 0) or the original bounds-less Gaussian itself; fresh 0.5
+        Bernoulli or categorical masses; a fresh mixed prior."""
+        p, label = self.prior_initial, self.label
+        dev = p.device
+        if label == "continuous":
+            bounds = getattr(p, "bounds", None)
+            self.prior = p if bounds is None else Uniform(bounds, device=dev)
+        elif label == "binary":
+            self.prior = BinaryPrior(p.n_dims, device=dev)
+        elif label == "categorical":
+            self.prior = CategoricalPrior(p.categories, device=dev)
+        elif label == "mixedbinary":
+            self.prior = MixedBinaryPrior(p.n_dims_cont, p.n_dims_binary, p.bounds,
+                                          p.continous_first, device=dev)
+        elif label == "mixedcategorical":
+            self.prior = MixedCategoricalPrior(p.n_dims_cont, p.n_dims_disc,
+                                               p.categories, p.bounds,
+                                               p.continous_first, device=dev)
 
     def update_prior(self, x_cand, weights):
-        """Refit the proposal to the weighted pool as a WKDE of at most 4096
-        components (SOBER/_sampler.py:113-157); a Gaussian's WKDE has no
-        bounds."""
-        self.prior = update_continuous_prior(
-            x_cand, weights, self.prior, self.prior.n_dims, gen=self.keys.next())
+        """Fit the proposal to the weighted pool (SOBER/_sampler.py:113-157):
+        a continuous proposal as a WKDE of at most 4096 components (a
+        Gaussian's WKDE has no bounds), a Bernoulli or categorical one by
+        its MLE, a mixed one block by block. For the categorical labels
+        x_cand holds category indices in the discrete block."""
+        label = self.label
+        if label == "continuous":
+            self.prior = update_continuous_prior(
+                x_cand, weights, self.prior, self.prior.n_dims, gen=self.keys.next())
+        elif label == "binary":
+            self.prior = update_binary_prior(weights, x_cand, self.prior)
+        elif label == "categorical":
+            self.prior = update_categorical_prior(weights, x_cand, self.prior)
+        else:
+            self.prior = update_mixed_prior(x_cand, weights, self.prior,
+                                            label=label[len("mixed"):],
+                                            gen=self.keys.next())
+
+    def check_categorical(self) -> bool:
+        return self.label in ("categorical", "mixedcategorical")
 
     def sampling(self, n_rec: int, redraw: bool = False):
         """One pool draw: X ~ proposal, w = cleanse(pi(X) / p(X))
-        (SOBER/_sampler.py:173-187). A redraw from a Uniform is pseudo-
-        random, as the JAX pipeline's refill draws are; only the first
-        draw follows (and advances) its Sobol sequence."""
-        p, gen = self.prior, self.keys.next()
-        if redraw and isinstance(p, Uniform):
-            x = p.scale(torch.rand((n_rec, p.n_dims), generator=gen,
-                                   device=p.device))
-        else:
-            x = p.sample(gen, n_rec)
-        return x, fs.pi_weights(self.pi, x, p.pdf(x))
+        (SOBER/_sampler.py:173-187). A redraw from a Uniform (or a mixed
+        prior's Uniform block) is pseudo-random, as the JAX pipeline's
+        refill draws are; only the first draw follows (and advances) its
+        Sobol sequence."""
+        x, _, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw)
+        return x, fs.pi_weights(self.pi, x, pdf)
+
+    def categorical_sampling(self, n_rec: int, redraw: bool = False):
+        """A pool draw that also returns the rows with category indices in
+        the discrete block, which the categorical update reads
+        (SOBER/_sampler.py:189-203): (X, X_indices, w)."""
+        x, xi, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw)
+        return x, xi, fs.pi_weights(self.pi, x, pdf)
+
+    def _draw(self, n_rec: int, redraw: bool = False):
+        """A pool as the refill carries it: for the categorical labels the
+        values and then the index rows side by side, so that every filled
+        row replaces both."""
+        if self.check_categorical():
+            x, xi, w = self.categorical_sampling(n_rec, redraw)
+            return torch.cat([x, xi], dim=1), w
+        return self.sampling(n_rec, redraw)
+
+    def _split(self, x):
+        """(values,), or (values, index rows) for the categorical labels, of
+        a pool as `_draw` carries it."""
+        if self.check_categorical():
+            # the kernels take contiguous operands
+            n = self.prior.n_dims
+            return x[:, :n].contiguous(), x[:, n:]
+        return (x,)
 
     def recursive_sampling(self, n_rec: int, n_repeat: int = 5,
                            need: int | None = None):
         """A fresh pool whose zero-weight rows are refilled by up to
         n_repeat - 1 redraws while at most `need` (self.thresh) rows are
         accepted (SOBER/_sampler.py:205-261); uniform weights, and
-        self.flag set, when nothing is ever accepted. Adds its host reads
+        self.flag set, when nothing is ever accepted. Returns (x, w), or
+        (x, x_indices, w) for the categorical labels. Adds its host reads
         (one accepted count a round) to self.last_reads."""
-        draw = lambda: self.sampling(n_rec, redraw=True)
+        draw = lambda: self._draw(n_rec, redraw=True)
         x, w, self.flag, reads = fs.refill(
             draw, *draw(), self.thresh if need is None else need, n_repeat)
         self.last_reads += reads
-        return x, w
+        return *self._split(x), w
 
     def _select_nys(self, x_cand, weights, n_nys: int):
         """Nystrom subset: KMeans centroids for continuous domains, inverse-
@@ -131,15 +183,17 @@ class EmpiricalSampler(RecombinationSampler):
         return x_cand[deweighted_resampling(self.keys.next(), weights, n_nys)]
 
     def sampling_candidates(self, n_rec: int, n_nys: int):
-        """The continuous pipeline (fused_sampling.py:_uniform_pipeline,
-        _wkde_pipeline, _gauss_pipeline and _cont_branches of the JAX
-        package): a pool from the proposal; if its weights are healthy (at
-        least thresh distinct values), a WKDE refit on them; else the old
-        proposal refilled for up to thresh rounds first and the WKDE fit on
-        that, unless nothing was accepted: then the uniform-weight pool and
-        its first n_nys rows are returned and the proposal stays. The
-        WKDE's pool is refilled for up to n_nys rounds and sparsified by
-        KMeans. Returns (x_cand, x_nys, weights).
+        """The candidate pipeline of every non-dataset label (the JAX
+        package's fused_sampling.py:_cont_branches, shared by its uniform,
+        WKDE, Gaussian, binary and spec-driven discrete pipelines): a pool
+        from the proposal; if its weights are healthy (at least thresh
+        distinct values), the proposal update on them; else the old
+        proposal refilled for up to thresh rounds first and the update fit
+        on that, unless nothing was accepted: then the uniform-weight pool
+        and its first n_nys rows are returned and the proposal stays. The
+        updated proposal's pool is refilled for up to n_nys rounds and
+        sparsified (`_select_nys`). A Uniform block becomes a WKDE at its
+        first update. Returns (x_cand, x_nys, weights), x_cand the values.
 
         Host reads: the weight-health branch and one count a refill round
         (self.last_reads); the JAX program reads nothing, but its host
@@ -147,14 +201,16 @@ class EmpiricalSampler(RecombinationSampler):
         if n_rec <= n_nys:
             raise ValueError(f"n_rec={n_rec} must exceed n_nys={n_nys}")
         self.last_reads = 1
-        x, w = self.sampling(n_rec)
+        x, w = self._draw(n_rec)
+        xs = self._split(x)
         if not bool(check_weights(w, self.thresh_initial)):
-            x, w = self.recursive_sampling(n_rec, self.thresh_initial,
-                                           need=self.thresh_initial)
+            *xs, w = self.recursive_sampling(n_rec, self.thresh_initial,
+                                             need=self.thresh_initial)
             if self.flag:
-                return x, x[:n_nys], w
-        self.update_prior(x, w)
-        x, w = self.recursive_sampling(n_rec, n_nys, need=n_nys)
+                return xs[0], xs[0][:n_nys], w
+        # the categorical updates read the index rows
+        self.update_prior(xs[-1], w)
+        x, *_, w = self.recursive_sampling(n_rec, n_nys, need=n_nys)
         return x, self._select_nys(x, w, n_nys), w
 
     # -- dataset domains -------------------------------------------------------

@@ -5,9 +5,9 @@ One `next_batch` call runs the acquisition: (a proposal reset on
 stagnation) -> the pi-weighted candidate pool -> a Nystrom subset ->
 kernel recombination -> the batch, with an optional exploit polish on
 continuous domains. `step` refits the GP first. Ported for exact-GP models
-on continuous (Uniform, Gaussian, WKDE proposals) and dataset domains; the
-discrete domains, `step_fbgp` and the FBGP/BQ models are ROADMAP.md
-queue 1, items 10 and 12.
+on every domain: continuous (Uniform, Gaussian, WKDE proposals), binary,
+categorical, mixed and dataset; `step_fbgp` and the FBGP/BQ models are
+ROADMAP.md queue 1, item 12.
 """
 from __future__ import annotations
 
@@ -33,7 +33,9 @@ class Sober(EmpiricalSampler):
 
         Args:
           prior: a prior from sober_tpu_torch.priors (Uniform, Gaussian,
-                 WeightedKernelDensityEstimation or DatasetPrior)
+                 WeightedKernelDensityEstimation, BinaryPrior,
+                 CategoricalPrior, MixedBinaryPrior, MixedCategoricalPrior
+                 or DatasetPrior)
           model: a fitted exact-GP GPState
           thresh: minimum distinct positive weights before the weights are
                   considered degenerate
@@ -135,7 +137,7 @@ class Sober(EmpiricalSampler):
         Returns X_batch (batch_size, d); (global_indices, X_batch) for a
         dataset domain; (w, X_batch) with return_weights=True. calc_obj:
         optional callable X -> (N,) acquisition values to push within the
-        quadrature constraints. recycle_prior=False resets a continuous
+        quadrature constraints. recycle_prior=False resets a non-dataset
         proposal to the domain prior at every call whose model holds new
         observations (should_reset_prior).
 

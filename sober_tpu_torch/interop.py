@@ -11,7 +11,9 @@ GP's params keep their unused `raw_lengthscale`, field for field. A
 continuous prior (Uniform, Gaussian, or a WKDE's parameter dict) goes
 across the same way (`continuous_prior_to_numpy`,
 `continuous_prior_from_numpy`), so that both packages start from the same
-proposal, Sobol offset included. Nothing here imports jax.
+proposal, Sobol offset included; so does a discrete or mixed one
+(`discrete_prior_to_numpy`, `discrete_prior_from_numpy`). Nothing here
+imports jax.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from .gp.exact import GPConfig, GPParams, GPState
 from .ops.kernels import Kernel
 from .priors.continuous import Gaussian, Uniform
 from .priors.dataset import DatasetPrior
+from .priors.discrete import (BinaryPrior, CategoricalPrior, MixedBinaryPrior,
+                              MixedCategoricalPrior)
 from .priors.wkde import WeightedKernelDensityEstimation
 from .utils.sobol import sobol_state
 
@@ -130,3 +134,48 @@ def continuous_prior_from_numpy(d: dict, device=None):
     params = {k: _tensor(v, device) for k, v in d["params"].items()}
     return WeightedKernelDensityEstimation.from_params(
         params, d["n_dims"], _tensor(d["bounds"], device), d["n_kde"])
+
+
+def discrete_prior_to_numpy(prior) -> dict:
+    """The dict `discrete_prior_from_numpy` reads, from a sober_tpu
+    BinaryPrior (its probs), CategoricalPrior (its categories and padded
+    (d, C_max) masses) or mixed prior (its continuous block as
+    `continuous_prior_to_numpy` gives it, its discrete block, bounds and
+    layout), with arrays read by np.asarray."""
+    if hasattr(prior, "prior_cont"):
+        return {"family": prior.type, "bounds": np.asarray(prior.bounds),
+                "continous_first": bool(prior.continous_first),
+                "continuous": continuous_prior_to_numpy(prior.prior_cont),
+                "discrete": discrete_prior_to_numpy(prior.prior_disc)}
+    if hasattr(prior, "categories"):
+        return {"family": "categorical",
+                "categories": [list(map(float, c)) for c in prior.categories],
+                "weights": np.asarray(prior.weights)}
+    return {"family": "binary", "probs": np.asarray(prior.probs)}
+
+
+def discrete_prior_from_numpy(d: dict, device=None):
+    """The port's BinaryPrior, CategoricalPrior, MixedBinaryPrior or
+    MixedCategoricalPrior from a dict of numpy arrays: the masses, and a
+    mixed prior's continuous block (a Uniform with its Sobol offset, or a
+    WKDE), carried over."""
+    device = resolve_device(device)
+    if d["family"] == "binary":
+        return BinaryPrior(len(d["probs"]), probs=_tensor(d["probs"], device),
+                           device=device)
+    if d["family"] == "categorical":
+        prior = CategoricalPrior(d["categories"], device=device)
+        prior.weights = _tensor(d["weights"], device)
+        return prior
+    disc = discrete_prior_from_numpy(d["discrete"], device)
+    n_cont = np.shape(d["bounds"])[1]
+    if d["family"] == "mixedbinary":
+        prior = MixedBinaryPrior(n_cont, disc.n_dims, d["bounds"], d["continous_first"],
+                                 device=device)
+        prior.prior_binary = disc
+    else:
+        prior = MixedCategoricalPrior(n_cont, disc.n_dims, disc.categories, d["bounds"],
+                                      d["continous_first"], device=device)
+    prior.prior_disc = disc
+    prior.prior_cont = continuous_prior_from_numpy(d["continuous"], device)
+    return prior

@@ -3,8 +3,7 @@ experiments/_synthetic_function.py).
 
 Negated, maximization-convention objectives over (n, d) float32 tensors,
 computed on the tensor's device, and the setups that pair each with its
-Uniform prior. `setup_ackley` and `setup_rosenbrock` need the mixed priors
-of ROADMAP.md queue 1, item 10.
+prior: a Uniform, or for Ackley and Rosenbrock a mixed one.
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ import numpy as np
 import torch
 
 from ..priors.continuous import Uniform
+from ..priors.discrete import MixedBinaryPrior, MixedCategoricalPrior
 
 
 def _const(a, x: torch.Tensor) -> torch.Tensor:
@@ -38,6 +38,14 @@ def branin_product(x: torch.Tensor) -> torch.Tensor:
     num = (torch.sin(x) + torch.cos(3 * x) / 2.0) ** 2
     den = (x / 2.0) ** 2 + 0.3
     return torch.prod(num / den, dim=1)
+
+
+def rosenbrock(x: torch.Tensor) -> torch.Tensor:
+    """Negated mean Rosenbrock (experiments/_synthetic_function.py:28-36);
+    maximum 0 at x = 1."""
+    x = torch.atleast_2d(x)
+    terms = 100.0 * (x[:, 1:] - x[:, :-1] ** 2) ** 2 + (x[:, :-1] - 1.0) ** 2
+    return -torch.mean(terms, dim=1)
 
 
 _HART6_ALPHA = [1.0, 1.2, 3.0, 3.2]
@@ -87,3 +95,19 @@ def setup_hartmann(seed: int = 0, device=None):
 def setup_shekel(seed: int = 0, device=None):
     """experiments/_shekel.py: 4 continuous dimensions on [0, 10]."""
     return Uniform([[0.0] * 4, [10.0] * 4], seed=seed, device=device), shekel
+
+
+def setup_ackley(device=None):
+    """experiments/_ackley.py:5-31: 3 continuous dimensions on [-1, 1] and
+    20 binary ones."""
+    bounds = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]]
+    return MixedBinaryPrior(3, 20, bounds, continous_first=True, device=device), ackley
+
+
+def setup_rosenbrock(device=None):
+    """experiments/_rosenbrock.py: 1 continuous dimension on [-4, 4] and 6
+    categorical ones of 4 categories each (values -2, -1, 1, 2)."""
+    cats = [[-2.0, -1.0, 1.0, 2.0]] * 6
+    prior = MixedCategoricalPrior(1, 6, cats, [[-4.0], [4.0]], continous_first=True,
+                                  device=device)
+    return prior, rosenbrock

@@ -35,7 +35,10 @@ def cuda():
                                        (200, 500, 10, False), (1, 500, 4, True),
                                        (257, 130, 33, True), (65, 7, 100, False),
                                        (130, 700, 100, True),
-                                       (13000, 200, 6, True), (30000, 130, 3, False)])
+                                       (13000, 200, 6, True), (30000, 130, 3, False),
+                                       (200000, 500, 24, False), (500, 200000, 24, True),
+                                       (20000, 500, 23, True), (500, 500, 15, False),
+                                       (512, 500, 7, True)])
 def test_rbf_kernel_matches_reference_on_card(cuda, n, m, d, ard):
     rng = np.random.default_rng(0)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
@@ -310,3 +313,35 @@ def test_continuous_next_batch_on_card(cuda):
     x, y = torch.cat([x, xb]), torch.cat([y, f(xb)])
     xb = sober.step(x, y, 20000, 200, 20, warm_start=True)
     assert xb.shape == (20, 4) and bool(((xb >= 0) & (xb <= 10)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["binary", "mixedcategorical"])
+def test_discrete_next_batch_on_card(cuda, label):
+    """Sober on the Ising edge masks (binary) and on the mixed Rosenbrock,
+    on the card: the RBF Gram and CAR launch, the batches are legal (0/1
+    edges; the four category values and the closed box), the weights >= 0
+    sum to 1, and step acquires a legal batch too."""
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.tasks import setup_ising, setup_rosenbrock
+
+    prior, f = (setup_ising if label == "binary" else setup_rosenbrock)(device=cuda)
+    x = prior.sample(torch.Generator(device=cuda).manual_seed(0), 60)
+    y = f(x)
+    sober = Sober(prior, fit_gp_padded(x, y))
+    rbf0, car0 = rbf_gram.launches, car_eliminate.launches
+
+    def legal(xb):
+        if label == "binary":
+            return bool(((xb == 0) | (xb == 1)).all())
+        cats = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=cuda)
+        return (bool(torch.isin(xb[:, 1:], cats).all())
+                and bool((xb[:, 0].abs() <= 4).all()))
+
+    w, xb = sober.next_batch(20000, 200, 20, return_weights=True)
+    assert rbf_gram.launches > rbf0 and car_eliminate.launches > car0
+    assert xb.shape == (20, prior.n_dims) and legal(xb)
+    assert bool((w >= 0).all()) and abs(float(w.sum()) - 1.0) < 1e-3
+    x, y = torch.cat([x, xb]), torch.cat([y, f(xb)])
+    xb = sober.step(x, y, 20000, 200, 20, warm_start=True)
+    assert xb.shape == (20, prior.n_dims) and legal(xb)

@@ -271,8 +271,8 @@ def test_next_batch_matches_jax(carried):
 
 def test_sober_rejects_what_is_not_ported(carried):
     """What is still to port raises and names its ROADMAP.md item: the
-    discrete domains (item 10), the TruncatedGaussian proposal (item 13)
-    and step_fbgp (item 12)."""
+    TruncatedGaussian proposal (item 13) and step_fbgp (item 12); a domain
+    label that no package has raises ValueError."""
     from sober_tpu.priors.continuous import TruncatedGaussian
 
     feats, targets, available, _, ts = carried
@@ -281,11 +281,11 @@ def test_sober_rejects_what_is_not_ported(carried):
     with pytest.raises(NotImplementedError, match="item 12"):
         sober.step_fbgp(None, None, None, N_REC, N_NYS, BATCH)
 
-    class Binary:
-        type, device = "binary", torch.device("cpu")
+    class Ordinal:
+        type, device = "ordinal", torch.device("cpu")
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Sober(Binary(), ts)
+    with pytest.raises(ValueError, match="ordinal"):
+        Sober(Ordinal(), ts)
     tgauss = TruncatedGaussian(jnp.zeros(2), jnp.eye(2),
                                jnp.asarray([[-1.0, -1.0], [1.0, 1.0]]))
     with pytest.raises(NotImplementedError, match="item 13"):

@@ -10,7 +10,8 @@ from sober_tpu_torch import Sober, config, interop
 from sober_tpu_torch.core.sampler import RecombinationSampler
 from sober_tpu_torch.gp import exact
 from sober_tpu_torch.ops import kernels
-from sober_tpu_torch.priors import continuous, dataset, wkde
+from sober_tpu_torch.priors import continuous, dataset, discrete, wkde
+from sober_tpu_torch.tasks import discrete as discrete_tasks
 from sober_tpu_torch.tasks import synthetic
 from sober_tpu_torch.tasks.drug import setup_malaria, setup_solvent
 from sober_tpu_torch.utils import prng, sobol
@@ -51,6 +52,17 @@ def _tensors(obj):
         return [obj.mu, obj.cov, obj.chol]
     if isinstance(obj, wkde.WeightedKernelDensityEstimation):
         return [obj.bounds, *obj._params.values()]
+    if isinstance(obj, discrete.BinaryPrior):
+        return [obj.probs]
+    if isinstance(obj, discrete.CategoricalPrior):
+        return [obj.n_categories, obj.value_table, obj.valid_mask, obj.weights]
+    if isinstance(obj, discrete._MixedPrior):
+        return [obj.bounds, *_tensors(obj.prior_cont), *_tensors(obj.prior_disc)]
+    if isinstance(obj, discrete_tasks.Ising):
+        return [obj.h, obj.v, obj.h_ind, obj.v_ind, obj._pairs_h, obj._pairs_v,
+                obj._cov_h, obj._cov_v, obj.log_partition_original]
+    if isinstance(obj, discrete_tasks.MaxSAT):
+        return [obj.weights, obj.idx, obj.sign]
     if callable(obj):                          # a task's objective
         return []
     return [obj.features, obj.true_targets, obj.available]
@@ -86,6 +98,19 @@ CONSTRUCTORS = {
     "setup_shekel": (continuous, lambda: synthetic.setup_shekel()),
     "Sober (continuous)": (continuous, lambda: Sober(
         continuous.Uniform([[0.0, 0.0], [1.0, 1.0]]), _cpu_state())),
+    "BinaryPrior": (discrete, lambda: discrete.BinaryPrior(3)),
+    "CategoricalPrior": (discrete, lambda: discrete.CategoricalPrior([[0.0, 1.0], [2.0]])),
+    "MixedBinaryPrior": (discrete, lambda: discrete.MixedBinaryPrior(
+        2, 3, [[0.0, 0.0], [1.0, 1.0]])),
+    "MixedCategoricalPrior": (discrete, lambda: discrete.MixedCategoricalPrior(
+        1, 2, [[0.0, 1.0], [2.0]], [[0.0], [1.0]])),
+    "discrete_prior_from_numpy": (interop, lambda: interop.discrete_prior_from_numpy(
+        {"family": "binary", "probs": np.full(3, 0.5)})),
+    "Ising": (discrete_tasks, lambda: discrete_tasks.Ising(1e-4)),
+    "MaxSAT": (discrete_tasks, lambda: discrete_tasks.MaxSAT(
+        discrete_tasks.DATA_DIR / "maxcut-johnson8-2-4.clq.wcnf")),
+    "setup_ackley": (discrete, lambda: synthetic.setup_ackley()),
+    "Sober (binary)": (discrete, lambda: Sober(discrete.BinaryPrior(2), _cpu_state())),
 }
 
 
