@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Six paths. The first is one exact-GP batch-BO iteration on a continuous
+Eight paths. The first is one exact-GP batch-BO iteration on a continuous
 domain: a warm-started MAP refit of the GP hypers, the posterior cache, the
 incumbent eta, and the fused acquisition (pi weights, Nystrom features, the
 halving tree of Caratheodory eliminations). The second is one
@@ -16,7 +16,12 @@ quick-start Branin gate of tests/test_acceptance.py. The fifth is
 bench.py:bench_ising's warm-started Sober.step on the Ising edge masks (24
 binary dimensions, n_rec 200,000, n_nys 500, batch 100, 500 observations);
 the sixth the other discrete and mixed configs of examples/ (Ackley,
-Rosenbrock, pest control, MaxSAT). The script
+Rosenbrock, pest control, MaxSAT). The seventh is the fully-Bayesian GP at
+bench.py's two FBGP configs: fbgp_refit (1000 hypersamples distilled to 50
+chains over 100 observations in 3-d) and Sober.step_fbgp (n_rec 8192,
+n_nys 256, batch 50), then examples/fbgp_hartmann.py's MES flow. The eighth
+is BASQ's evidence of a Gaussian likelihood at tutorial 05's quadrature
+sizes. The script
 
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
@@ -54,7 +59,18 @@ Rosenbrock, pest control, MaxSAT). The script
  12. runs 3 batches of each discrete flow, each batch checked (legal
      values, weights, moment error), Rosenbrock's best rising on seeds 0
      and 1, each best beside the JAX package's record;
- 13. holds the RBF and CAR kernels at every shape phases 9-12 launched;
+ 13. runs fbgp_refit at bench.py's config (a warm-up and 5 timed, with the
+     sweep, the surrogate fit, the distillation and the chain caches each
+     timed after a sync), checks each refit and the distilled posterior
+     against the undistilled one; times the sweep's two batched
+     factorizations at (1001, 128, 128) beside their bounds and holds the
+     sweep on the card to the CPU's; runs step_fbgp at bench.py's config
+     (stages, launches by shape, host reads, peak memory, busy share, each
+     batch checked) and times the RBF kernel at its busiest shapes; runs 3
+     MES batches of the Hartmann flow (legal batches, the best rising);
+ 14. runs BASQ.quadrature(8192, 256, 64) on the Gaussian evidence: within
+     0.15 of the truth, posterior draws and the MAP near 0;
+ 15. holds the RBF and CAR kernels at every shape phases 9-14 launched;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -122,6 +138,16 @@ FLOWS = (("ackley", "setup_ackley", 0, 100, 200, 20_000, 500),
          ("pest", "setup_pest", 0, 100, 100, 100_000, 500),
          ("maxsat", "setup_maxsat", 0, 100, 100, 20_000, 500))
 FLOW_ITERS = 3
+# bench.py:bench_fbgp and bench_fbgp_step: observations, d, hypersamples,
+# the distillation's n_nys, chains; the step's n_rec, n_nys, batch
+FBGP = (100, 3, 1000, 100, 50, 8192, 256, 50)
+# examples/fbgp_hartmann.py: initial points, hypersamples, the distillation's
+# n_nys, chains, n_rec, n_nys, batch (calc_obj "MES"); iterations run here
+HARTMANN = (50, 1000, 100, 50, 8192, 256, 50, 3)
+# tutorials/05's quadrature (n_quad, n_nys, nodes) on tests/test_bq_fbgp.py's
+# Gaussian evidence; its truth, log(sqrt(2 pi) 0.7 / 6), and the gate
+BASQ_QUAD = (8192, 256, 64)
+BASQ_TRUTH, BASQ_TOL = float(np.log(np.sqrt(2 * np.pi) * 0.7 / 6.0)), 0.15
 # where the TPU kernels live that the CUDA kernels replace (the bit pack
 # computes the row sums |x| and |y| of the Pallas Tanimoto kernel)
 REPLACES = {"rbf_gram": "sober_tpu/ops/pallas_kernels.py:131",
@@ -205,8 +231,6 @@ def phase_rbf(summary: dict) -> None:
     d = 100 (the first port refused d > 64), scalar and ARD lengthscales;
     device time per iteration of each continuous config, summed over its
     launches."""
-    from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
-
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     cases = [(name, d, n, m, k) for name, _, _, _, d, _, _ in CONFIGS
@@ -215,58 +239,69 @@ def phase_rbf(summary: dict) -> None:
     cases += [("ising_d24", 24, n, m, 0) for n, m in ISING_STRIPS]
     per_iteration = {}
     for config, d, n, m, launches in cases:
-        # at d = 100, coordinates in [-0.3, 0.3] keep the entries far from 0
-        # and the reference's norm trick accurate
-        scale = 1.0 if d <= 32 else 0.3
-        x = torch.as_tensor(rng.uniform(-scale, scale, (n, d)), dtype=torch.float32,
-                            device=dev)
-        y = torch.as_tensor(rng.uniform(-scale, scale, (m, d)), dtype=torch.float32,
-                            device=dev)
-        # x and y read once, the Gram written once; 3 d + 2 flops an entry
-        # (difference and square-add a feature; exp and scale)
-        bound, by = bound_ms(4.0 * ((n + m) * d + n * m), float(n) * m * (3 * d + 2),
-                             FP32_PEAK)
-        store_ms = (cuda_ms(lambda: torch.empty((n, m), device=dev).fill_(1.0))
-                    if n * m >= STRIP else None)
-        for ard in (False, True):
-            ls = (torch.as_tensor(rng.uniform(0.5, 1.5, d), dtype=torch.float32, device=dev)
-                  if ard else torch.tensor(0.8, device=dev))
-            os_ = torch.tensor(1.3, device=dev)
-            params = {"lengthscale": ls, "outputscale": os_}
-            got = rbf_gram(params, x, y)
-            want = rbf_gram_reference(params, x, y)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            # float64 direct differences on the first rows
-            xs, ys = x[:64].double() / ls.double(), y.double() / ls.double()
-            exact = float(os_) * torch.exp(-0.5 * ((xs[:, None] - ys[None]) ** 2).sum(-1))
-            oracle_err = float((got[:64].double() - exact).abs().max())
-            del xs, ys, exact
-            # the kernel sums squared differences directly, the reference
-            # uses the norm trick: they differ by the latter's cancellation
-            require(err <= 1e-5 * float(os_) and oracle_err <= 1e-5 * float(os_),
-                    f"rbf {n}x{m} d={d} ard={ard}: err {err}, oracle {oracle_err}")
-            ms = cuda_ms(lambda: rbf_gram(params, x, y))
-            plain_ms = cuda_ms(lambda: rbf_gram_reference(params, x, y))
-            emit(phase="rbf_gram", config=config, shape=[n, m, d], ard=ard,
-                 launches_per_iteration=launches, max_abs_err=err,
-                 oracle_max_abs_err=oracle_err, tol=1e-5 * float(os_), ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                 store_library_ms=store_ms)
-            if not ard and launches:
-                acc = per_iteration.setdefault(config, {"ms": 0.0, "bound_ms": 0.0})
-                acc["ms"] += launches * ms
-                acc["bound_ms"] += launches * bound
-            if config == "ising_d24" and not ard:
-                summary.setdefault("rbf_gram_ising_d24", []).append(
-                    {"shape": [n, m, d], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "store_library_ms": store_ms})
-            if (n, m, d, ard) == (512, 65_536, 10, False):
-                summary["rbf_gram"] = {"max_abs_err": err, "ms": ms,
-                                       "plain_ms": plain_ms, "bound_ms": bound,
-                                       "bound_by": by, "store_library_ms": store_ms,
-                                       "shape": [n, m, d]}
+        scalar, _ = time_rbf(config, d, n, m, launches, rng, dev)
+        if launches:
+            acc = per_iteration.setdefault(config, {"ms": 0.0, "bound_ms": 0.0})
+            acc["ms"] += launches * scalar["ms"]
+            acc["bound_ms"] += launches * scalar["bound_ms"]
+        keep = {k: scalar[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "store_library_ms")}
+        if config == "ising_d24":
+            summary.setdefault("rbf_gram_ising_d24", []).append(
+                {"shape": [n, m, d], **keep})
+        if (n, m, d) == (512, 65_536, 10):
+            summary["rbf_gram"] = {"max_abs_err": scalar["max_abs_err"], **keep,
+                                   "shape": [n, m, d]}
     emit(phase="rbf_gram_per_iteration", device_ms=per_iteration)
+
+
+def time_rbf(config, d, n, m, launches, rng, dev) -> tuple[dict, dict]:
+    """The RBF kernel at (n, m, d) on coordinates in [-1, 1] ([-0.3, 0.3]
+    past 32 features, where the reference's norm trick stays accurate),
+    scalar and ARD lengthscales: held to the reference and to float64 on
+    the first rows within 1e-5 * outputscale, timed beside the reference
+    and (for a strip) fill_ of the same output, with its bound. Emits and
+    returns the (scalar, ARD) rows."""
+    from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
+
+    scale = 1.0 if d <= 32 else 0.3
+    x = torch.as_tensor(rng.uniform(-scale, scale, (n, d)), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(rng.uniform(-scale, scale, (m, d)), dtype=torch.float32,
+                        device=dev)
+    # x and y read once, the Gram written once; 3 d + 2 flops an entry
+    # (difference and square-add a feature; exp and scale)
+    bound, by = bound_ms(4.0 * ((n + m) * d + n * m), float(n) * m * (3 * d + 2),
+                         FP32_PEAK)
+    store_ms = (cuda_ms(lambda: torch.empty((n, m), device=dev).fill_(1.0))
+                if n * m >= STRIP else None)
+    rows = []
+    for ard in (False, True):
+        ls = (torch.as_tensor(rng.uniform(0.5, 1.5, d), dtype=torch.float32, device=dev)
+              if ard else torch.tensor(0.8, device=dev))
+        os_ = torch.tensor(1.3, device=dev)
+        params = {"lengthscale": ls, "outputscale": os_}
+        got = rbf_gram(params, x, y)
+        want = rbf_gram_reference(params, x, y)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        xs, ys = x[:64].double() / ls.double(), y.double() / ls.double()
+        exact = float(os_) * torch.exp(-0.5 * ((xs[:, None] - ys[None]) ** 2).sum(-1))
+        oracle_err = float((got[:64].double() - exact).abs().max())
+        del xs, ys, exact
+        # the kernel sums squared differences directly, the reference uses
+        # the norm trick: they differ by the latter's cancellation
+        require(err <= 1e-5 * float(os_) and oracle_err <= 1e-5 * float(os_),
+                f"rbf {n}x{m} d={d} ard={ard}: err {err}, oracle {oracle_err}")
+        row = dict(phase="rbf_gram", config=config, shape=[n, m, d], ard=ard,
+                   launches_per_iteration=launches, max_abs_err=err,
+                   oracle_max_abs_err=oracle_err, tol=1e-5 * float(os_),
+                   ms=cuda_ms(lambda: rbf_gram(params, x, y)),
+                   plain_ms=cuda_ms(lambda: rbf_gram_reference(params, x, y)),
+                   bound_ms=bound, bound_by=by, store_library_ms=store_ms)
+        emit(**row)
+        rows.append(row)
+    return rows[0], rows[1]
 
 
 def car_problem(m, q, dev):
@@ -345,11 +380,12 @@ def phase_car(summary: dict, sm_clock_mhz: float) -> None:
                                          car_plan)
 
     dev = torch.device("cuda")
-    # the main path's shapes (a cluster at m=400, one block at m=200) and
-    # the L2 variant's; beside the chosen plan, the alternatives are timed
-    # on the same inputs: every other cluster size that holds the basis, and
-    # the L2 kernel (the first port's design)
-    for m, q in ((400, 200), (200, 100), (1000, 500)):
+    # the main path's shapes (a cluster at m=400, one block at m=200), the
+    # FBGP distillation's and batch selection's (m=100) and BASQ's
+    # quadrature's (m=128), and the L2 variant's; beside the chosen plan,
+    # the alternatives are timed on the same inputs: every other cluster
+    # size that holds the basis, and the L2 kernel (the first port's design)
+    for m, q in ((400, 200), (200, 100), (100, 50), (128, 64), (1000, 500)):
         x, mu, mask, big_n, n_take, active0 = car_problem(m, q, dev)
         plan = car_plan(m, n_take)
         alternatives = tuple(p for c in (1, 2, 4, MAX_CLUSTER)
@@ -1027,20 +1063,28 @@ PATH_RBF_SHAPES, PATH_CAR_SHAPES = set(), set()
 
 
 @contextlib.contextmanager
-def counted(path: dict):
+def counted(path: dict, shapes: dict | None = None):
     """Adds the RBF and CAR launches made inside the block to `path`, and
-    their shapes to PATH_RBF_SHAPES and PATH_CAR_SHAPES."""
+    their shapes to PATH_RBF_SHAPES and PATH_CAR_SHAPES; with `shapes`, the
+    launches of each ("rbf_gram", n, m, d) and ("car_eliminate", m, q) to
+    it too."""
     # the modules, not the functions of the same names that ops/ exports
     rbf = importlib.import_module("sober_tpu_torch.ops.rbf_gram")
     car = importlib.import_module("sober_tpu_torch.ops.car")
     rbf_inner, car_inner = rbf._launch, car._launch
 
+    def tally(key):
+        if shapes is not None:
+            shapes[key] = shapes.get(key, 0) + 1
+
     def rbf_launch(x, y, ls, os_):
         PATH_RBF_SHAPES.add((x.shape[0], y.shape[0], x.shape[1], ls.numel() > 1))
+        tally(("rbf_gram", x.shape[0], y.shape[0], x.shape[1]))
         return rbf_inner(x, y, ls, os_)
 
     def car_launch(mu, big_n, row_mask, n_take, plan):
         PATH_CAR_SHAPES.add(tuple(big_n.shape[-2:]))
+        tally(("car_eliminate", *big_n.shape[-2:]))
         return car_inner(mu, big_n, row_mask, n_take, plan)
 
     before = launch_counts()
@@ -1108,7 +1152,9 @@ def add_counts(counts: dict, path: dict, label: str) -> None:
 
 def busy_share(run) -> dict:
     """Device-busy share of one run under torch.profiler: the kernels'
-    device time over the run's host-clock time."""
+    device time over the run's host-clock time. User annotations (an
+    optimizer's step is one) are left out: their device time is the span
+    of the kernels inside them, idle gaps included."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1118,7 +1164,8 @@ def busy_share(run) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     us = lambda e: getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0))
     dev_us = sum(us(e) for e in rows)
@@ -1270,13 +1317,12 @@ def phase_branin_gate(counts: dict) -> None:
 
 
 @contextlib.contextmanager
-def stage_clock(sober, stages: dict):
-    """Times the stages of Sober.step inside the block by host clock, each
-    ended by a device sync: the refit (fit_gp_padded as core/sober.py calls
-    it), the candidates and recombination; appends their ms to
-    stages[name]."""
-    mod = importlib.import_module("sober_tpu_torch.core.sober")
-
+def timed_stages(targets, stages: dict):
+    """Times each (owner, attribute, stage) of `targets` inside the block by
+    host clock, each call ended by a device sync: the callable
+    owner.attribute is wrapped, and its ms appended to stages[stage]. An
+    attribute set on an instance is removed afterwards, so its class's
+    method shows again."""
     def timed(name, fn):
         def run(*args, **kwargs):
             torch.cuda.synchronize()
@@ -1287,20 +1333,28 @@ def stage_clock(sober, stages: dict):
             return out
         return run
 
-    own = dict(vars(sober))
-    fit = mod.fit_gp_padded
-    mod.fit_gp_padded = timed("fit", fit)
-    for name in ("sampling_candidates", "sampling_recombination"):
-        setattr(sober, name, timed(name.split("_")[1], getattr(sober, name)))
+    saved = [(owner, attr, vars(owner).get(attr)) for owner, attr, _ in targets]
+    for owner, attr, name in targets:
+        setattr(owner, attr, timed(name, getattr(owner, attr)))
     try:
         yield
     finally:
-        mod.fit_gp_padded = fit
-        for name in ("sampling_candidates", "sampling_recombination"):
-            if name in own:
-                setattr(sober, name, own[name])
+        for owner, attr, old in saved:
+            if old is not None:
+                setattr(owner, attr, old)
             else:
-                delattr(sober, name)
+                delattr(owner, attr)
+
+
+def stage_clock(sober, stages: dict):
+    """Times the stages of Sober.step inside the block by host clock, each
+    ended by a device sync: the refit (fit_gp_padded as core/sober.py calls
+    it), the candidates and recombination; appends their ms to
+    stages[name]."""
+    mod = importlib.import_module("sober_tpu_torch.core.sober")
+    return timed_stages([(mod, "fit_gp_padded", "fit"),
+                         (sober, "sampling_candidates", "candidates"),
+                         (sober, "sampling_recombination", "recombination")], stages)
 
 
 def phase_ising_step(counts: dict) -> None:
@@ -1441,6 +1495,333 @@ def phase_discrete_flows(counts: dict) -> None:
     emit(phase="discrete_flows", launches_on_path=path)
 
 
+def fbgp_problem(dev):
+    """bench.py's FBGP data: 100 points of [-1, 1]^3 from numpy seed 0 and
+    their likelihood exp(-|x / 0.6|^2 / 2) (y on the host, as bench's)."""
+    n_obs, d = FBGP[:2]
+    x = np.random.default_rng(0).uniform(-1, 1, (n_obs, d)).astype(np.float32)
+    y = np.exp(-0.5 * np.sum((x / 0.6) ** 2, axis=1)).astype(np.float32)
+    return torch.as_tensor(x, device=dev), y
+
+
+def refit_stages():
+    """The stages of gp.fbgp.fbgp_refit, for timed_stages: the LML sweep
+    (with its draw), the hyper-surrogate's MAP fit, the recombination and
+    the chain caches."""
+    mod = importlib.import_module("sober_tpu_torch.gp.fbgp")
+    return [(mod, "sampling_hypers", "sweep"), (mod, "_surrogate_params", "surrogate_fit"),
+            (mod, "recombination", "distillation"), (mod, "chain_caches", "chain_caches")]
+
+
+def check_fbgp(model, n_qd, p, label) -> dict:
+    """A refit FBGP: n_qd chains of p hypers, weights >= 0 summing to 1,
+    finite caches. Returns its ESS."""
+    w = model.w_qd
+    require(tuple(model.Theta_qd.shape) == (n_qd, p), f"{label}: chains {model.Theta_qd.shape}")
+    require(bool((w >= 0).all()) and abs(float(w.sum()) - 1.0) < 1e-3,
+            f"{label}: chain weights")
+    require(all(bool(torch.isfinite(c).all()) for c in model._cache),
+            f"{label}: caches finite")
+    return {"ess": float(1.0 / torch.sum(w ** 2))}
+
+
+def phase_fbgp_refit(counts: dict) -> dict:
+    """bench.py:bench_fbgp on the port at its config: a FitboGP on 100
+    points of [-1, 1]^3, then fbgp_refit(1000 hypersamples, n_nys 100,
+    n_qd 50), a warm-up and ITERS timed by host clock after a sync, with its
+    stages (the sweep, the surrogate fit, the distillation, the chain
+    caches) each ended by a sync; the peak memory and host reads of one
+    more refit. Each refit is checked, and the distilled marginal mean is
+    held within 0.25 of the undistilled 1001-chain posterior's
+    (tests/test_bq_fbgp.py's guard). Returns the launches per shape of one
+    refit."""
+    from sober_tpu_torch.gp.fbgp import (FitboGP, FullyBayesianGP, RBFHyperPrior,
+                                         fbgp_refit, sampling_hypers)
+
+    n_obs, d, n_hypers, n_nys, n_qd = FBGP[:5]
+    dev = torch.device("cuda")
+    x, y = fbgp_problem(dev)
+    t0 = time.perf_counter()
+    model = FitboGP(x, torch.as_tensor(y, device=dev))
+    torch.cuda.synchronize()
+    base_fit_ms = 1e3 * (time.perf_counter() - t0)
+    hp = RBFHyperPrior(device=dev)
+    refit = lambda: fbgp_refit(model, hp, n_hypers=n_hypers, n_nys=n_nys, n_qd=n_qd,
+                               gen=torch.Generator(device=dev).manual_seed(0))
+    zero_counts()
+    stages, totals, path, shapes = {}, [], {}, {}
+    for it in range(1 + ITERS):
+        with counted(path, shapes if it == 0 else None), timed_stages(refit_stages(), stages):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fbgp = refit()
+            torch.cuda.synchronize()
+            totals.append(1e3 * (time.perf_counter() - t0))
+        ess = check_fbgp(fbgp, n_qd, d + 1, f"fbgp_refit {it}")
+    torch.cuda.reset_peak_memory_stats()
+    with counted(path), host_reads() as reads:
+        refit()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    add_counts(counts, path, "fbgp_refit")
+    hy, lmls = sampling_hypers(model, hp, n_hypers, torch.Generator(device=dev).manual_seed(0))
+    w_full = torch.exp(lmls - lmls.max())
+    full = FullyBayesianGP(model, w_full / w_full.sum(), hy)
+    xq = torch.as_tensor(np.random.default_rng(1).uniform(-1, 1, (256, d)),
+                         dtype=torch.float32, device=dev)
+    gap = float((fbgp.marginal_predict(xq)[0] - full.marginal_predict(xq)[0]).abs().max())
+    require(gap < 0.25, f"fbgp_refit: distilled mean {gap} from the full posterior")
+    median = lambda v: statistics.median(v[1:])
+    runs = 2 + ITERS
+    emit(phase="fbgp_refit", n_obs=n_obs, d=d, n_hypers=n_hypers, n_nys=n_nys, n_qd=n_qd,
+         refit_ms_median=median(totals), refit_ms=totals, base_fit_ms=base_fit_ms,
+         stage_ms_median={k: median(v) for k, v in stages.items()}, stage_ms=stages,
+         launches_per_refit={k: v / runs for k, v in path.items()},
+         host_reads=reads[0], peak_mem_gib=peak, marginal_mean_gap=gap,
+         lml_finite=int(torch.sum(lmls > -1e19)), **ess)
+    return shapes
+
+
+def phase_fbgp_sweep_factor() -> None:
+    """The LML sweep's two batched factorizations at bench.py's shape
+    ((1001, 128, 128) fp32, captured from one sweep): cholesky_ex with the
+    (n, n) triangular solve (L^-1 K), and cholesky_ex with the vector solve
+    and the log-diagonal, each with its bound; the whole sweep; and the
+    sweep on the card against the sweep on the CPU (plain LAPACK) on the
+    same inputs, within 2e-3 with EPS_LML on the same lanes."""
+    from sober_tpu_torch.gp import fbgp as fb
+
+    n_hypers = FBGP[2]
+    dev = torch.device("cuda")
+    x, y = fbgp_problem(dev)
+    model = fb.FitboGP(x, torch.as_tensor(y, device=dev))
+    hp = fb.RBFHyperPrior(device=dev)
+    theta_map = fb._theta_map_of(model, hp)
+    anchor = torch.cat([torch.full((1,), -10.0, device=dev), torch.log(theta_map)])
+    thetas = torch.cat([anchor[None], hp.sample(torch.Generator(device=dev).manual_seed(0),
+                                                n_hypers)])
+    args = (model.model.x, model.fobs_padded, model.alpha, model.model.mask)
+    captured, inner = [], fb._fixed_jitter_cholesky
+
+    def capture(a):
+        captured.append(a.clone())
+        return inner(a)
+    fb._fixed_jitter_cholesky = capture
+    try:
+        lmls = fb.fitbo_mll_batch(thetas, *args)
+    finally:
+        fb._fixed_jitter_cholesky = inner
+    want = fb.fitbo_mll_batch(thetas.cpu(), *(a.cpu() for a in args))
+    dead = want == fb.EPS_LML
+    got = lmls.cpu()
+    require(torch.equal(got == fb.EPS_LML, dead), "sweep: EPS_LML lanes differ from the CPU's")
+    err = float(((got - want).abs() / (want.abs() + 1.0))[~dead].max())
+    require(err <= 2e-3, f"sweep: card against CPU rel err {err}")
+    # the matrices the sweep factors: symmetrized, at the fixed jitter
+    eye = torch.eye(captured[0].shape[-1], device=dev)
+    a1, a2 = (0.5 * (a + a.mT) + 1e-6 * torch.clamp_min(
+        torch.diagonal(a, dim1=-2, dim2=-1).mean(-1), 1e-30)[:, None, None] * eye
+        for a in captured)
+    failed = [int((torch.linalg.cholesky_ex(a)[1] != 0).sum()) for a in (a1, a2)]
+    t, n = a1.shape[0], a1.shape[-1]
+    rhs = torch.randn((t, n, 1), generator=torch.Generator(device=dev).manual_seed(1),
+                      device=dev)
+
+    def factor_solve():
+        c, _ = torch.linalg.cholesky_ex(a1)
+        return torch.linalg.solve_triangular(c, a1, upper=False)
+
+    def factor_vector():
+        c, _ = torch.linalg.cholesky_ex(a2)
+        w = torch.linalg.solve_triangular(c, rhs, upper=False)
+        return w, torch.log(torch.diagonal(c, dim1=-2, dim2=-1))
+
+    mat = 4.0 * t * n * n
+    rows = {}
+    for name, fn, n_bytes, ops in (
+            # reads the matrix and the (n, n) right side, writes L and L^-1 K;
+            # n^3 / 3 flops of the factor and n^3 of the solve a matrix
+            ("cholesky_ex_solve_nn", factor_solve, 4 * mat, t * (n ** 3 / 3 + n ** 3)),
+            # reads the matrix and a vector, writes L, w and the log-diagonal
+            ("cholesky_ex_solve_vector", factor_vector, 2 * mat + 12.0 * t * n,
+             t * (n ** 3 / 3 + n ** 2 + n)),
+            ("cholesky_ex", lambda: torch.linalg.cholesky_ex(a1), 2 * mat, t * n ** 3 / 3)):
+        bound, by = bound_ms(n_bytes, ops, FP32_PEAK)
+        rows[name] = {"library_ms": cuda_ms(fn), "bound_ms": bound, "bound_by": by}
+    sweep_ms = cuda_ms(lambda: fb.fitbo_mll_batch(thetas, *args), reps=5)
+    emit(phase="fbgp_sweep_factor", shape=[t, n, n], factorizations=rows,
+         sweep_ms=sweep_ms, cpu_max_rel_err=err, eps_lml_lanes=int(dead.sum()),
+         failed_factorizations=failed)
+
+
+def phase_fbgp_step(counts: dict) -> dict:
+    """bench.py:bench_fbgp_step on the port at its config: the FBGP refit
+    of bench's 100 points, Sober over Uniform([-1, 1]^3), then
+    step_fbgp(x, y, hp, 8192, 256, 50) with 1000 hypersamples, n_nys_qd 100
+    and n_qd 50: a warm-up and ITERS timed by host clock after a sync, with
+    the stages (the base fit, the hyper pipeline, the candidates,
+    recombination) each ended by a sync; every batch checked (inside the
+    box, weights >= 0 summing to 1, moment error below 5e-3); the host
+    reads of one more step and the busy share of one under torch.profiler.
+    Returns the launches per shape of one step."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.gp.fbgp import FitboGP, RBFHyperPrior, fbgp_refit
+    from sober_tpu_torch.priors import Uniform
+
+    n_obs, d, n_hypers, n_nys_qd, n_qd, n_rec, n_nys, batch = FBGP
+    dev = torch.device("cuda")
+    x, y = fbgp_problem(dev)
+    hp = RBFHyperPrior(device=dev)
+    model = fbgp_refit(FitboGP(x, torch.as_tensor(y, device=dev)), hp, n_hypers=n_hypers,
+                       n_nys=n_nys_qd, n_qd=n_qd,
+                       gen=torch.Generator(device=dev).manual_seed(0))
+    prior = Uniform([[-1.0] * d, [1.0] * d], device=dev)
+    sober = Sober(prior, model, seed=0)
+    seen = capture_recombination(sober)
+    lo, hi = prior.bounds
+    core = importlib.import_module("sober_tpu_torch.core.sober")
+    step = lambda: sober.step_fbgp(x, y, hp, n_rec, n_nys, batch, n_hypers=n_hypers,
+                                   n_nys_qd=n_nys_qd, n_qd=n_qd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stages, totals, moms, path, shapes = {}, [], [], {}, {}
+    targets = [(core, "FitboGP", "base_fit"), (core, "fbgp_refit", "hyper_pipeline"),
+               (sober, "sampling_candidates", "candidates"),
+               (sober, "sampling_recombination", "recombination")]
+    for it in range(1 + ITERS):
+        with counted(path, shapes if it == 0 else None), timed_stages(targets, stages):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xb = step()
+            torch.cuda.synchronize()
+            totals.append(1e3 * (time.perf_counter() - t0))
+        moms.append(check_continuous_batch(sober, seen, xb, lo, hi, batch,
+                                           f"fbgp step {it}")["moment_err"])
+        check_fbgp(sober.pi.model, n_qd, d + 1, f"fbgp step {it}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with counted(path):
+        with host_reads() as reads:
+            step()
+        profiled = busy_share(step)
+    add_counts(counts, path, "fbgp_step")
+    steps = 1 + ITERS + 2
+    median = lambda v: statistics.median(v[1:])
+    emit(phase="fbgp_step", n_obs=n_obs, d=d, n_hypers=n_hypers, n_nys_qd=n_nys_qd,
+         n_qd=n_qd, n_rec=n_rec, n_nys=n_nys, batch=batch,
+         step_ms_median=median(totals), step_ms=totals,
+         stage_ms_median={k: median(v) for k, v in stages.items()}, stage_ms=stages,
+         launches_per_step={k: v / steps for k, v in path.items()},
+         launches_by_shape={"|".join(map(str, k)): v for k, v in sorted(shapes.items())},
+         host_reads_per_step=reads[0], peak_mem_gib=peak, profile_one_step=profiled,
+         moment_err_max=max(moms), n_pos=int(sober.last_npos))
+    return shapes
+
+
+def phase_fbgp_kernels(summary: dict, shapes: dict) -> None:
+    """The RBF kernel at the FBGP step's shapes that carry the most work
+    (n m launches), timed beside its plain version with their bounds and
+    launches per step (time_rbf)."""
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    rbf = [(key[1:], k) for key, k in shapes.items() if key[0] == "rbf_gram"]
+    rbf = sorted(rbf, key=lambda r: r[0][0] * r[0][1] * r[1], reverse=True)[:4]
+    rows = []
+    for (n, m, d), k in rbf:
+        scalar, _ = time_rbf("fbgp_step", d, n, m, k, rng, dev)
+        rows.append({key: scalar[key] for key in ("shape", "launches_per_iteration", "ms",
+                                                  "plain_ms", "bound_ms", "bound_by")})
+    summary["rbf_gram_fbgp_step"] = rows
+
+
+def phase_fbgp_hartmann(counts: dict) -> None:
+    """examples/fbgp_hartmann.py on the card at its config for HARTMANN's
+    iterations: 50 Sobol points of Hartmann-6, an FBGP refit, Sober, then
+    step_fbgp(..., calc_obj="MES") per batch. Every batch must be legal
+    (finite, inside [0, 1]^6) with weights >= 0 summing to 1, and the best
+    must rise; the bests are printed, with no gate against JAX."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.gp.fbgp import FitboGP, RBFHyperPrior, fbgp_refit
+    from sober_tpu_torch.tasks.synthetic import setup_hartmann
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    n_init, n_hypers, n_nys_qd, n_qd, n_rec, n_nys, batch, iters = HARTMANN
+    dev = torch.device("cuda")
+    keys = KeyRing(0, device=dev)
+    prior, fn = setup_hartmann(device=dev)
+    x = prior.sample(keys.next(), n_init)
+    y = fn(x)
+    hp = RBFHyperPrior(device=dev)
+    zero_counts()
+    path, t0 = {}, time.perf_counter()
+    with counted(path):
+        model = fbgp_refit(FitboGP(x, y), hp, n_hypers=n_hypers, n_nys=n_nys_qd,
+                           n_qd=n_qd, gen=keys.next())
+    sober = Sober(prior, model, seed=0)
+    seen = capture_recombination(sober)
+    lo, hi = prior.bounds
+    bests, steps_ms = [float(y.max())], []
+    for it in range(iters):
+        t1 = time.perf_counter()
+        with counted(path):
+            xb = sober.step_fbgp(x, y, hp, n_rec, n_nys, batch, n_hypers=n_hypers,
+                                 n_nys_qd=n_nys_qd, n_qd=n_qd, calc_obj="MES")
+        torch.cuda.synchronize()
+        steps_ms.append(1e3 * (time.perf_counter() - t1))
+        require(tuple(xb.shape) == (batch, 6) and bool(torch.isfinite(xb).all())
+                and bool(((xb >= lo) & (xb <= hi)).all()), f"hartmann {it}: batch")
+        check_batch(seen["idx"], seen["w"], seen["x_cand"].shape[0], batch,
+                    f"hartmann {it}")
+        x, y = torch.cat([x, xb]), torch.cat([y, fn(xb)])
+        bests.append(float(y.max()))
+    require(bests[-1] > bests[0], f"hartmann: best {bests}")
+    add_counts(counts, path, "fbgp_hartmann")
+    emit(phase="fbgp_hartmann", n_init=n_init, n_hypers=n_hypers, n_qd=n_qd, n_rec=n_rec,
+         n_nys=n_nys, batch=batch, calc_obj="MES", best_per_batch=bests,
+         step_ms=steps_ms, truth=3.32237, launches_on_path=path,
+         seconds=time.perf_counter() - t0)
+
+
+def phase_basq_evidence(counts: dict) -> None:
+    """tests/test_bq_fbgp.py:69-95 on the card at tutorial 05's quadrature
+    sizes: 100 Sobol points of U(-3, 3), a ScaleMmltGP on the log-likelihood
+    of N(0, 0.7^2), Sober's proposal learned from one next_batch(512, 64,
+    8), then BASQ.quadrature(8192, 256, 64): the evidence must be within
+    0.15 of log(sqrt(2 pi) 0.7 / 6) in log space; posterior draws and the
+    MAP must lie near 0."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.apps.basq import BASQ
+    from sober_tpu_torch.gp.warped import ScaleMmltGP
+    from sober_tpu_torch.priors import Uniform
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    n_quad, n_nys, n_nodes = BASQ_QUAD
+    dev = torch.device("cuda")
+    keys = KeyRing(0, device=dev)
+    prior = Uniform([[-3.0], [3.0]], device=dev)
+    x = prior.sample(keys.next(), 100)
+    zero_counts()
+    path = {}
+    with counted(path):
+        model = ScaleMmltGP(x, -0.5 * (x[:, 0] / 0.7) ** 2)
+        sober = Sober(prior, model)
+        sober.next_batch(512, 64, 8)
+        basq = BASQ(prior, model, sober, verbose=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        elml, avlml = basq.quadrature(n_quad, n_nys, n_nodes)
+        quad_ms = 1e3 * (time.perf_counter() - t0)
+        samples = basq.sampling_posterior(200)
+        map_x = float(basq.MAP(500)[0])
+    add_counts(counts, path, "basq_evidence")
+    require(abs(elml - BASQ_TRUTH) < BASQ_TOL, f"basq: elml {elml}, truth {BASQ_TRUTH}")
+    post_mean = float(samples.mean())
+    require(abs(post_mean) < 0.3 and abs(map_x) < 0.5,
+            f"basq: posterior mean {post_mean}, MAP {map_x}")
+    emit(phase="basq_evidence", n_quad=n_quad, n_nys=n_nys, n_nodes=n_nodes, elml=elml,
+         avlml=avlml, truth=BASQ_TRUTH, tol=BASQ_TOL, quadrature_ms=quad_ms,
+         posterior_mean=post_mean, map=map_x, launches_on_path=path)
+
+
 def main() -> None:
     smi, sm_clock = phase_device()
     phase_build()
@@ -1462,6 +1843,11 @@ def main() -> None:
     phase_branin_gate(counts)
     phase_ising_step(counts)
     phase_discrete_flows(counts)
+    phase_fbgp_refit(counts)
+    phase_fbgp_sweep_factor()
+    phase_fbgp_kernels(summary, phase_fbgp_step(counts))
+    phase_fbgp_hartmann(counts)
+    phase_basq_evidence(counts)
     phase_path_shapes()
     kernels = []
     for name in ("rbf_gram", "car_eliminate", "tanimoto_gram", "pack_bits"):
@@ -1477,8 +1863,10 @@ def main() -> None:
                         **{k: s[k] for k in ("gram_ms", "product_library_ms",
                                              "store_library_ms", "step_floor_ms")
                            if k in s}})
-    # the RBF Gram at the Ising step's d = 24 strips
+    # the RBF Gram at the Ising step's d = 24 strips and the FBGP step's
+    # busiest shapes
     kernels[0]["ising_d24_strips"] = summary["rbf_gram_ising_d24"]
+    kernels[0]["fbgp_step_shapes"] = summary["rbf_gram_fbgp_step"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ subset (core/fused_sampling.py). Continuous, binary, categorical,
 mixedbinary and mixedcategorical: a pool from the proposal, the proposal
 refit, refill draws and a Nystrom subset, as one eager pipeline,
 `sampling_candidates`, built from `sampling` (or `categorical_sampling`),
-`recursive_sampling`, `update_prior` and `_select_nys`. The
-TruncatedGaussian proposal waits for ROADMAP.md queue 1, item 13, and the
-JAX package's `mesh`/`schedule` arguments for item 16.
+`recursive_sampling`, `update_prior` and `_select_nys`. `MixtureSampler`
+draws from a Sober's learned proposal mixed with the prior (BASQ's
+posterior sampling). The TruncatedGaussian proposal waits for ROADMAP.md
+queue 1, item 13, and the JAX package's `mesh`/`schedule` arguments for
+item 16.
 """
 from __future__ import annotations
 
@@ -243,3 +245,30 @@ class EmpiricalSampler(RecombinationSampler):
                 n_rec=n_rec, n_nys=n_nys, thresh=PRUNE_THRESH, batch=batch,
                 prune=prune, calc_obj=calc_obj))
         return idx_global, x_batch, w_rchq
+
+
+class MixtureSampler:
+    """The learned proposal of a Sober (a WKDE once it has been updated)
+    mixed with the prior, for posterior SIR sampling
+    (SOBER/_sampler.py:384-447)."""
+
+    def __init__(self, prior: BasePrior, sober, ratio_wkde: float = 0.5):
+        self.prior = prior
+        self.sober = sober
+        self.bounds = getattr(prior, "bounds", None)
+        self.ratio_wkde = ratio_wkde
+
+    def sample(self, gen: torch.Generator, n_samples: int) -> torch.Tensor:
+        """int(ratio_wkde * n) rows from the proposal, the rest from the
+        prior, both drawn with `gen`."""
+        n_wkde = int(self.ratio_wkde * n_samples)
+        parts = []
+        if n_wkde:
+            parts.append(self.sober.prior.sample(gen, n_wkde))
+        if n_samples - n_wkde:
+            parts.append(self.prior.sample(gen, n_samples - n_wkde))
+        return torch.cat(parts, dim=0)
+
+    def pdf(self, x: torch.Tensor) -> torch.Tensor:
+        return (self.ratio_wkde * self.sober.prior.pdf(x)
+                + (1.0 - self.ratio_wkde) * self.prior.pdf(x))

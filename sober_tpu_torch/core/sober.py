@@ -4,10 +4,11 @@ quadrature (port of sober_tpu/core/sober.py; SOBER/_sober.py).
 One `next_batch` call runs the acquisition: (a proposal reset on
 stagnation) -> the pi-weighted candidate pool -> a Nystrom subset ->
 kernel recombination -> the batch, with an optional exploit polish on
-continuous domains. `step` refits the GP first. Ported for exact-GP models
-on every domain: continuous (Uniform, Gaussian, WKDE proposals), binary,
-categorical, mixed and dataset; `step_fbgp` and the FBGP/BQ models are
-ROADMAP.md queue 1, item 12.
+continuous domains. `step` refits an exact GP first, `step_fbgp` a
+fully-Bayesian GP. Ported for every domain: continuous (Uniform, Gaussian,
+WKDE proposals), binary, categorical, mixed and dataset; and for every model
+family: the exact GP, the FBGP (gp/fbgp.py) and the warped BQ model
+(gp/warped.py).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from ..gp.exact import (GPConfig, GPState, fit_gp_padded, init_params,
                         polish_posterior_mean, raw_params_from_state)
+from ..gp.fbgp import _VBQ_CFG, FBGPAcquisitionFunction, FitboGP, fbgp_refit
 from ..ops.tanimoto_gram import check_fingerprints
 from .pi import PI
 from .rckernel import RecombinationKernel
@@ -36,7 +38,8 @@ class Sober(EmpiricalSampler):
                  WeightedKernelDensityEstimation, BinaryPrior,
                  CategoricalPrior, MixedBinaryPrior, MixedCategoricalPrior
                  or DatasetPrior)
-          model: a fitted exact-GP GPState
+          model: a fitted exact-GP GPState, or a model exposing is_fbgp
+                 (gp.fbgp.FullyBayesianGP) or is_bq (gp.warped.ScaleMmltGP)
           thresh: minimum distinct positive weights before the weights are
                   considered degenerate
           sampler_type: "lfi" (likelihood-free inference pi)
@@ -61,20 +64,21 @@ class Sober(EmpiricalSampler):
     # -- model wiring --------------------------------------------------------
 
     def check_model_type(self, model):
-        """Model family sniffing (SOBER/_sober.py:41-54); only the exact GP
-        is ported."""
-        if hasattr(model, "is_fbgp") or hasattr(model, "is_bq"):
-            raise NotImplementedError(
-                "FBGP and warped-BQ models are not ported yet (ROADMAP.md "
-                "queue 1, item 12)")
-        self.fbgp, self.is_bq = False, False
-        if getattr(model, "mask", None) is not None:
+        """Model family sniffing (SOBER/_sober.py:41-54)."""
+        self.fbgp = hasattr(model, "is_fbgp")
+        self.is_bq = not self.fbgp and hasattr(model, "is_bq")
+        if self.is_bq:
+            self.n_init = len(model.y_log)
+        elif getattr(model, "mask", None) is not None:
             self.n_init = int(model.mask.sum())
         else:
-            self.n_init = int(model.y.shape[0])
+            self.n_init = len(model.fobs) if self.fbgp else int(model.y.shape[0])
 
     def initialisation(self, model):
-        """Wire pi and the recombination kernel (SOBER/_sober.py:56-72)."""
+        """Wire pi and the recombination kernel (SOBER/_sober.py:56-72): the
+        model's own for the FBGP and BQ families."""
+        if self.fbgp or self.is_bq:
+            return model.make_pi(), model.rc_kernel()
         pi = PI(model, label=self.sampler_type)
         kernel = RecombinationKernel(model, mode=self.kernel_type)
         return pi, kernel
@@ -91,10 +95,13 @@ class Sober(EmpiricalSampler):
     # -- prior reset heuristic ----------------------------------------------
 
     def _targets(self) -> np.ndarray:
+        """The observations the model holds, padding left out."""
         model = self.pi.model
-        y = model.y.detach().cpu().numpy()
+        if self.is_bq:
+            return model.y_log.cpu().numpy()
+        y = (model.fobs if self.fbgp else model.y).cpu().numpy()
         if model.mask is not None:
-            y = y[model.mask.detach().cpu().numpy() > 0]
+            y = y[model.mask.cpu().numpy() > 0]
         return y
 
     def should_reset_prior(self, batch_size: int, recycle_prior: bool,
@@ -194,9 +201,56 @@ class Sober(EmpiricalSampler):
         return self._acquire(n_rec, n_nys, batch_size, None, return_weights,
                              False, polish, t0)
 
-    def step_fbgp(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Sober.step_fbgp is not ported yet (ROADMAP.md queue 1, item 12)")
+    def step_fbgp(self, x_obs, y_obs, hyperprior, n_rec: int, n_nys: int,
+                  batch_size: int, n_hypers: int = 1000,
+                  n_nys_qd: int = 100, n_qd: int = 50,
+                  cfg: GPConfig | None = None, optimiser: str = "lbfgs",
+                  alpha_factor: float = 1.0, bucket: int = 128,
+                  recycle_prior: bool = True, return_weights: bool = False,
+                  calc_obj=None):
+        """One fully-Bayesian BO iteration, the FBGP analogue of `step`: the
+        reset heuristic on y_obs, then a bucket-padded WSABI-warped base MAP
+        fit (gp.fbgp.FitboGP with `cfg`), the hyper pipeline
+        (gp.fbgp.fbgp_refit: the LML sweep over n_hypers draws, the
+        distillation to n_qd chains, the chain caches), update_model with
+        the new FullyBayesianGP, and the acquisition of next_batch. The JAX
+        package traces this into one program; here it runs eagerly, one
+        pipeline for every proposal family. Returns X_batch, or (w, X_batch)
+        with return_weights.
+
+        hyperprior: gp.fbgp.RBFHyperPrior; its n_ls must match the base
+        config (1 isotropic, d for cfg.ard). cfg defaults to FitboGP's fit
+        config. calc_obj: an FBGP acquisition label ("EI", "UCB", "MES",
+        "BQBC", "QBMGP") or an FBGPAcquisitionFunction (its label is used),
+        evaluated on the refit model."""
+        acq_label = getattr(calc_obj, "label", calc_obj)
+        if acq_label is not None and acq_label not in FBGPAcquisitionFunction.LABELS:
+            raise ValueError(
+                f"calc_obj must be one of {FBGPAcquisitionFunction.LABELS} (or "
+                f"an FBGPAcquisitionFunction); got {calc_obj!r}")
+        cfg = _VBQ_CFG if cfg is None else cfg
+        dev = self.keys.device
+        x_obs = torch.as_tensor(x_obs, dtype=torch.float32, device=dev)
+        y_obs = torch.as_tensor(y_obs, dtype=torch.float32, device=dev).reshape(-1)
+        n_ls_needed = x_obs.shape[1] if cfg.ard else 1
+        if hyperprior.n_ls != n_ls_needed:
+            raise ValueError(
+                f"hyperprior.n_ls={hyperprior.n_ls} does not match the base "
+                f"config ({'ARD, ' if cfg.ard else 'isotropic, '}needs "
+                f"n_ls={n_ls_needed}); construct RBFHyperPrior(n_ls={n_ls_needed})")
+        t0 = time.monotonic()
+        self.last_reset = False
+        if self.label != "dataset" and self.should_reset_prior(
+                batch_size, recycle_prior, targets=y_obs.cpu().numpy()):
+            self._mark_reset()
+        gp = FitboGP(x_obs, y_obs, alpha_factor=alpha_factor, optimiser=optimiser,
+                     bucket=bucket, cfg=cfg)
+        model = fbgp_refit(gp, hyperprior, n_hypers=n_hypers, n_nys=n_nys_qd,
+                           n_qd=n_qd, gen=self.keys.next())
+        self.update_model(model)
+        obj = None if acq_label is None else FBGPAcquisitionFunction(model, acq_label)
+        return self._acquire(n_rec, n_nys, batch_size, obj, return_weights,
+                             False, False, t0)
 
     # -- the acquisition -------------------------------------------------------
 

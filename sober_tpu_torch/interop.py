@@ -12,8 +12,14 @@ continuous prior (Uniform, Gaussian, or a WKDE's parameter dict) goes
 across the same way (`continuous_prior_to_numpy`,
 `continuous_prior_from_numpy`), so that both packages start from the same
 proposal, Sobol offset included; so does a discrete or mixed one
-(`discrete_prior_to_numpy`, `discrete_prior_from_numpy`). Nothing here
-imports jax.
+(`discrete_prior_to_numpy`, `discrete_prior_from_numpy`). The models of
+the FBGP and warped-BQ families go across too: a FitboGP (its GPState, the
+warp's alpha, its padded targets), an RBFHyperPrior, a FullyBayesianGP (the
+distilled weights and chains, their caches L^-1 and alpha, the padded
+observations, mask and eta) and a ScaleMmltGP (its h-space GPState, beta and
+log-likelihoods): `fitbo_gp_*`, `hyperprior_*`, `fbgp_*` and `scale_mmlt_*`,
+each `_to_numpy` and `_from_numpy`, so that both packages compute on the
+same model. Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import torch
 
 from .config import resolve_device
 from .gp.exact import GPConfig, GPParams, GPState
+from .gp.fbgp import ChainCache, FitboGP, FullyBayesianGP, RBFHyperPrior
+from .gp.warped import ScaleMmltGP
 from .ops.kernels import Kernel
 from .priors.continuous import Gaussian, Uniform
 from .priors.dataset import DatasetPrior
@@ -179,3 +187,74 @@ def discrete_prior_from_numpy(d: dict, device=None):
     prior.prior_disc = disc
     prior.prior_cont = continuous_prior_from_numpy(d["continuous"], device)
     return prior
+
+
+def fitbo_gp_to_numpy(gp) -> dict:
+    """The dict `fitbo_gp_from_numpy` reads, from a sober_tpu FitboGP."""
+    return {"state": gp_state_to_numpy(gp.model), "alpha": np.asarray(gp.alpha),
+            "Y_unwarp": np.asarray(gp.Y_unwarp), "x_obs_raw": np.asarray(gp.x_obs_raw),
+            "fobs_padded": np.asarray(gp.fobs_padded), "label": gp.label,
+            "alpha_factor": gp.alpha_factor, "bucket": gp.bucket,
+            "optimiser": gp.optimiser}
+
+
+def fitbo_gp_from_numpy(d: dict, device=None) -> FitboGP:
+    """The port's FitboGP with the fitted state, warp and targets of a
+    sober_tpu FitboGP, carried over (no refit)."""
+    gp = object.__new__(FitboGP)
+    gp.model = gp_state_from_numpy(d["state"], device)
+    gp.cfg = gp.model.config
+    gp.label, gp.alpha_factor = d["label"], d["alpha_factor"]
+    gp.bucket, gp.optimiser, gp.jitter = d["bucket"], d["optimiser"], 0.0
+    for k in ("alpha", "Y_unwarp", "x_obs_raw", "fobs_padded"):
+        setattr(gp, k, _tensor(d[k], device))
+    return gp
+
+
+def hyperprior_to_numpy(hp) -> dict:
+    """The dict `hyperprior_from_numpy` reads, from a sober_tpu RBFHyperPrior."""
+    return {"n_ls": hp.n_ls, "hypermu": np.asarray(hp.hypermu),
+            "hyperstd": np.asarray(hp.hyperstd)}
+
+
+def hyperprior_from_numpy(d: dict, device=None) -> RBFHyperPrior:
+    """The port's RBFHyperPrior with the same location and scale."""
+    device = resolve_device(device)
+    hp = RBFHyperPrior(n_ls=d["n_ls"], device=device)
+    hp.hypermu, hp.hyperstd = _tensor(d["hypermu"], device), _tensor(d["hyperstd"], device)
+    return hp
+
+
+def fbgp_to_numpy(model) -> dict:
+    """The dict `fbgp_from_numpy` reads, from a sober_tpu FullyBayesianGP."""
+    arr = lambda a: None if a is None else np.asarray(a)
+    return {"Xobs": arr(model.Xobs), "fobs": arr(model.fobs), "mask": arr(model.mask),
+            "eta": arr(model.eta), "w_qd": arr(model.w_qd),
+            "Theta_qd": arr(model.Theta_qd), "linv": arr(model._cache.linv),
+            "alpha": arr(model._cache.alpha)}
+
+
+def fbgp_from_numpy(d: dict, device=None) -> FullyBayesianGP:
+    """The port's FullyBayesianGP on the same chains, weights and caches."""
+    t = {k: _tensor(v, device) for k, v in d.items()}
+    return FullyBayesianGP.from_arrays(t["Xobs"], t["fobs"], t["mask"], t["eta"],
+                                       t["w_qd"], t["Theta_qd"],
+                                       ChainCache(t["linv"], t["alpha"]))
+
+
+def scale_mmlt_to_numpy(model) -> dict:
+    """The dict `scale_mmlt_from_numpy` reads, from a sober_tpu ScaleMmltGP."""
+    return {"state": gp_state_to_numpy(model.model), "beta": np.asarray(model.beta),
+            "y_log": np.asarray(model.y_log), "kernel_name": model.kernel_name,
+            "optimiser": model.optimiser}
+
+
+def scale_mmlt_from_numpy(d: dict, device=None) -> ScaleMmltGP:
+    """The port's ScaleMmltGP with the h-space state, beta and
+    log-likelihoods of a sober_tpu ScaleMmltGP, carried over (no refit)."""
+    m = object.__new__(ScaleMmltGP)
+    m.model = gp_state_from_numpy(d["state"], device)
+    m.cfg, m.kernel_name, m.optimiser, m.jitter = (
+        m.model.config, d["kernel_name"], d["optimiser"], 0.0)
+    m.beta, m.y_log = _tensor(d["beta"], device), _tensor(d["y_log"], device)
+    return m

@@ -76,6 +76,15 @@ def car_eliminate_reference(mu: torch.Tensor, big_n: torch.Tensor,
     of the (q, m) basis and then leaves row t behind, which is algebraically
     the drop-first-column form of `sober_tpu/core/rchq.py:_caratheodory`.
     """
+    out = (mu, torch.zeros_like(mu))
+    for out in _reference_steps(mu, big_n, row_mask, n_take):
+        pass
+    return out
+
+
+def _reference_steps(mu: torch.Tensor, big_n: torch.Tensor,
+                     row_mask: torch.Tensor, n_take: int):
+    """car_eliminate_reference's loop, yielding (mu, elim) after each step."""
     nt = big_n.T.clone()                                  # (q, m)
     elim = torch.zeros_like(mu)
     inf = torch.full_like(mu, float("inf"))
@@ -102,7 +111,7 @@ def car_eliminate_reference(mu: torch.Tensor, big_n: torch.Tensor,
         vsq = torch.clamp_min(torch.sum(v * v), 1e-30)
         w_row = v @ nt[t:]
         nt[t:] -= (valid * 2.0 / vsq) * torch.outer(v, w_row)
-    return mu, elim
+        yield mu, elim
 
 
 def reference_horizon(mu: torch.Tensor, big_n: torch.Tensor,
@@ -114,25 +123,23 @@ def reference_horizon(mu: torch.Tensor, big_n: torch.Tensor,
     a lane that earlier steps have whittled down, so rounding in mu grows
     from step to step, and after a few dozen steps two correct fp32
     implementations pick different lanes (equally valid results, with the
-    same moments). This returns a step count k <= n_take at which the
-    reference run in float32 and in float64 still agree: the same
-    eliminated lanes and |dmu| <= tol. Up to k, rounding does not yet decide
-    the answer, so a kernel can be compared with the reference exactly.
-    Found by bisection."""
-    def agree(k):
-        m32, e32 = car_eliminate_reference(mu, big_n, row_mask, k)
-        m64, e64 = car_eliminate_reference(mu.double(), big_n.double(),
-                                           row_mask.double(), k)
-        same = bool(torch.equal(e32.double(), e64))
-        return same and float((m32.double() - m64).abs().max()) <= tol
-
-    lo, hi = 0, n_take
-    if agree(hi):
-        return hi
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if agree(mid) else (lo, mid)
-    return lo
+    same moments). This returns the largest step count k <= n_take such that
+    the reference run in float32 and in float64 agree after every step up to
+    k: the same eliminated lanes and |dmu| <= tol. Up to k, rounding does
+    not yet decide the answer, so a kernel can be compared with the
+    reference exactly. The two runs are walked in lockstep: once they part,
+    they can meet again within tol after the lanes they differ on are
+    eliminated (chip_smoke.py's car_problem(128, 64) does), so their
+    agreement at one k says nothing of the steps before it."""
+    k = 0
+    for (m32, e32), (m64, e64) in zip(
+            _reference_steps(mu, big_n, row_mask, n_take),
+            _reference_steps(mu.double(), big_n.double(), row_mask.double(), n_take)):
+        if not (torch.equal(e32.double(), e64)
+                and float((m32.double() - m64).abs().max()) <= tol):
+            break
+        k += 1
+    return k
 
 
 def _check_operand(name: str, t: torch.Tensor, shape: tuple,

@@ -3,8 +3,11 @@ sober_tpu/ops/kmeans.py; the Nystrom sparsifier of SOBER/_weights.py:95-125).
 
 The E-step uses the norm-trick distance ||x||^2 - 2 x.c + ||c||^2, the JAX
 package's formula (torch.cdist switches formulas with the size, and the
-labels would differ); the M-step sums with index_add_. The loop has no
-host read.
+labels would differ). The M-step sums each cluster's points as one matmul
+with the one-hot labels, where the JAX package takes segment sums: on the
+card index_add_ adds with atomics in no fixed order, so its centroids, and
+every batch chosen downstream, would differ in the last bits from run to
+run. The loop has no host read.
 """
 from __future__ import annotations
 
@@ -20,16 +23,13 @@ def kmeans(x: torch.Tensor, n_clusters: int, n_iter: int = 10):
     """Returns (labels, centroids). The centroids start at the first K
     points (SOBER/_weights.py:103); an empty cluster keeps its previous
     centroid."""
-    n, d = x.shape
     c = x[:n_clusters].clone()
     x2 = torch.sum(x * x, dim=1, keepdim=True)
-    ones = torch.ones(n, dtype=x.dtype, device=x.device)
+    clusters = torch.arange(n_clusters, device=x.device)
     for _ in range(n_iter):
-        labels = _assign(x, x2, c)
-        sums = torch.zeros_like(c).index_add_(0, labels, x)
-        counts = torch.zeros(n_clusters, dtype=x.dtype,
-                             device=x.device).index_add_(0, labels, ones)
-        new_c = sums / torch.clamp_min(counts, 1.0)[:, None]
+        one_hot = (_assign(x, x2, c)[:, None] == clusters[None, :]).to(x.dtype)
+        counts = torch.sum(one_hot, dim=0)
+        new_c = (one_hot.T @ x) / torch.clamp_min(counts, 1.0)[:, None]
         c = torch.where(counts[:, None] > 0, new_c, c)
     return _assign(x, x2, c), c
 

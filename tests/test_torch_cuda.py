@@ -345,3 +345,86 @@ def test_discrete_next_batch_on_card(cuda, label):
     x, y = torch.cat([x, xb]), torch.cat([y, f(xb)])
     xb = sober.step(x, y, 20000, 200, 20, warm_start=True)
     assert xb.shape == (20, prior.n_dims) and legal(xb)
+
+
+def _fbgp_cpu_and_card(cuda, n_obs=30, d=3):
+    """An FBGP refit on the CPU (plain references) on bench.py's surface at
+    a small size, and the same model with its tensors moved to the card."""
+    from sober_tpu_torch.gp.fbgp import (ChainCache, FitboGP, FullyBayesianGP,
+                                         RBFHyperPrior, fbgp_refit)
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n_obs, d)), dtype=torch.float32)
+    y = torch.exp(-0.5 * torch.sum((x / 0.6) ** 2, dim=1))
+    cpu = fbgp_refit(FitboGP(x, y, bucket=32), RBFHyperPrior(device="cpu"),
+                     n_hypers=100, n_nys=32, n_qd=12)
+    g = lambda a: None if a is None else a.to(cuda)
+    card = FullyBayesianGP.from_arrays(
+        g(cpu.Xobs), g(cpu.fobs), g(cpu.mask), g(cpu.eta), g(cpu.w_qd),
+        g(cpu.Theta_qd), ChainCache(*map(g, cpu._cache)))
+    return cpu, card, rng
+
+
+@pytest.mark.cuda
+def test_fbgp_chain_predict_and_kernel_on_card(cuda):
+    """The FBGP's chain predictions (one RBF launch a chain for K(x, X_obs),
+    the batched L^-1 product), its marginal covariance (the recombination
+    kernel) on the card against the same model on the CPU, within 1e-5 of
+    their scale; pi within 2e-4: its z = (mu_f - eta) / sd takes the
+    difference of two O(1) numbers over an sd down to ~1e-2, so the
+    predictions' 1e-5 moves pi by up to ~1e-4 (6.3e-5 measured on an
+    H100)."""
+    from sober_tpu_torch.gp.fbgp import PIFBGP
+
+    cpu, card, rng = _fbgp_cpu_and_card(cuda)
+    xq = torch.as_tensor(rng.uniform(-1, 1, (700, 3)), dtype=torch.float32)
+    yq = xq[::7] + 0.01
+    before = rbf_gram.launches
+    got = card.batch_predict(xq.to(cuda))
+    assert rbf_gram.launches == before + cpu.Theta_qd.shape[0]
+    for a, b in zip(got, cpu.batch_predict(xq)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    want = cpu.rc_kernel()(xq, yq)
+    got = card.rc_kernel()(xq.to(cuda), yq.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    want = PIFBGP(cpu)(xq)
+    assert float((PIFBGP(card)(xq.to(cuda)).cpu() - want).abs().max()) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_step_fbgp_on_card(cuda):
+    """Sober.step_fbgp on the card at a small config of bench.py's FBGP
+    step: the RBF Gram and CAR launch, the batch is legal, the model is the
+    refit FBGP, and an MES-augmented step works too."""
+    from sober_tpu_torch.gp.fbgp import FullyBayesianGP, RBFHyperPrior
+    from sober_tpu_torch.priors import Uniform
+
+    cpu, card, rng = _fbgp_cpu_and_card(cuda)
+    sober = Sober(Uniform([[-1.0] * 3, [1.0] * 3], device=cuda), card)
+    x = torch.as_tensor(rng.uniform(-1, 1, (40, 3)), dtype=torch.float32, device=cuda)
+    y = torch.exp(-0.5 * torch.sum((x / 0.6) ** 2, dim=1))
+    hp = RBFHyperPrior(device=cuda)
+    rbf0, car0 = rbf_gram.launches, car_eliminate.launches
+    w, xb = sober.step_fbgp(x, y, hp, 4096, 128, 20, n_hypers=200, n_nys_qd=50,
+                            n_qd=20, return_weights=True)
+    assert rbf_gram.launches > rbf0 and car_eliminate.launches > car0
+    assert xb.shape == (20, 3) and bool(((xb >= -1) & (xb <= 1)).all())
+    assert bool((w >= 0).all()) and abs(float(w.sum()) - 1.0) < 1e-3
+    assert isinstance(sober.pi.model, FullyBayesianGP)
+    assert sober.pi.model.Xobs.device.type == "cuda"
+    xb = sober.step_fbgp(x, y, hp, 4096, 128, 20, n_hypers=200, n_nys_qd=50,
+                         n_qd=20, calc_obj="MES")
+    assert xb.shape == (20, 3) and bool(torch.isfinite(xb).all())
+
+
+@pytest.mark.cuda
+def test_kmeans_is_reproducible_on_card(cuda):
+    """KMeans on the card gives the same centroids bit for bit on a repeat
+    (its M-step is a one-hot matmul; index_add_'s atomics summed in no
+    fixed order)."""
+    from sober_tpu_torch.ops.kmeans import kmeans
+
+    x = torch.rand((4096, 6), generator=torch.Generator().manual_seed(0))
+    a = kmeans(x.to(cuda), 256)[1]
+    b = kmeans(x.to(cuda), 256)[1]
+    assert torch.equal(a, b)

@@ -271,15 +271,23 @@ def test_next_batch_matches_jax(carried):
 
 def test_sober_rejects_what_is_not_ported(carried):
     """What is still to port raises and names its ROADMAP.md item: the
-    TruncatedGaussian proposal (item 13) and step_fbgp (item 12); a domain
-    label that no package has raises ValueError."""
+    TruncatedGaussian proposal (item 13); a domain label that no package
+    has raises ValueError. step_fbgp (item 12) is ported: on a dataset
+    domain it refits an FBGP on the observed rows and returns a legal
+    screening batch."""
     from sober_tpu.priors.continuous import TruncatedGaussian
+    from sober_tpu_torch.gp.fbgp import FullyBayesianGP, RBFHyperPrior
 
     feats, targets, available, _, ts = carried
     prior = dataset_prior_from_numpy(feats, targets, available, device="cpu")
     sober = Sober(prior, ts)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sober.step_fbgp(None, None, None, N_REC, N_NYS, BATCH)
+    obs = np.flatnonzero(~available)
+    idx_g, x_batch = sober.step_fbgp(
+        feats[obs], targets[obs], RBFHyperPrior(device="cpu"), N_REC, N_NYS, BATCH,
+        n_hypers=20, n_nys_qd=16, n_qd=8, bucket=N_OBS)
+    _check_batch(idx_g, None, N_POOL, available)
+    assert torch.equal(x_batch, prior.features[idx_g])
+    assert sober.fbgp and isinstance(sober.pi.model, FullyBayesianGP)
 
     class Ordinal:
         type, device = "ordinal", torch.device("cpu")

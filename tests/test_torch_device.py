@@ -8,7 +8,7 @@ import torch
 
 from sober_tpu_torch import Sober, config, interop
 from sober_tpu_torch.core.sampler import RecombinationSampler
-from sober_tpu_torch.gp import exact
+from sober_tpu_torch.gp import exact, fbgp, warped
 from sober_tpu_torch.ops import kernels
 from sober_tpu_torch.priors import continuous, dataset, discrete, wkde
 from sober_tpu_torch.tasks import discrete as discrete_tasks
@@ -63,6 +63,15 @@ def _tensors(obj):
                 obj._cov_h, obj._cov_v, obj.log_partition_original]
     if isinstance(obj, discrete_tasks.MaxSAT):
         return [obj.weights, obj.idx, obj.sign]
+    if isinstance(obj, fbgp.RBFHyperPrior):
+        return [obj.hypermu, obj.hyperstd]
+    if isinstance(obj, fbgp.FitboGP):
+        return [obj.alpha, obj.Y_unwarp, obj.fobs_padded, obj.model.x, obj.model.alpha]
+    if isinstance(obj, fbgp.FullyBayesianGP):
+        return [obj.Xobs, obj.fobs, obj.mask, obj.eta, obj.w_qd, obj.Theta_qd,
+                *obj._cache]
+    if isinstance(obj, warped.ScaleMmltGP):
+        return [obj.beta, obj.y_log, obj.model.x, obj.model.alpha]
     if callable(obj):                          # a task's objective
         return []
     return [obj.features, obj.true_targets, obj.available]
@@ -71,6 +80,24 @@ def _tensors(obj):
 def _cpu_state():
     x = torch.rand((8, 2))
     return exact.fit_gp(x, x.sum(1), exact.GPConfig(fit_iters=2))
+
+
+def _state_dict(n=4):
+    """A GP state as interop's dicts hold one."""
+    import dataclasses
+
+    eye = np.eye(n)
+    return {"config": dataclasses.asdict(exact.GPConfig(standardize_y=False)),
+            "kernel_name": "rbf",
+            "kernel_params": {"lengthscale": np.ones(()), "outputscale": np.ones(())},
+            "noise": np.full((), 1e-4), "x": np.zeros((n, 1)), "y": np.zeros(n),
+            "y_mean": np.zeros(()), "y_std": np.ones(()), "chol": eye,
+            "alpha": np.zeros(n), "mask": None, "linv": eye}
+
+
+def _loglik(n=6):
+    x = np.linspace(-1.0, 1.0, n).reshape(-1, 1)
+    return x, -0.5 * x[:, 0] ** 2
 
 
 # (module whose resolve_device the constructor calls, the call)
@@ -111,6 +138,22 @@ CONSTRUCTORS = {
         discrete_tasks.DATA_DIR / "maxcut-johnson8-2-4.clq.wcnf")),
     "setup_ackley": (discrete, lambda: synthetic.setup_ackley()),
     "Sober (binary)": (discrete, lambda: Sober(discrete.BinaryPrior(2), _cpu_state())),
+    "RBFHyperPrior": (fbgp, lambda: fbgp.RBFHyperPrior(n_ls=2)),
+    "FitboGP": (fbgp, lambda: fbgp.FitboGP(*_loglik(), fit_iters=2, bucket=8)),
+    "ScaleMmltGP": (fbgp, lambda: warped.ScaleMmltGP(*_loglik(), fit_iters=2)),
+    "hyperprior_from_numpy": (interop, lambda: interop.hyperprior_from_numpy(
+        {"n_ls": 1, "hypermu": np.zeros(4), "hyperstd": np.ones(4)})),
+    "fitbo_gp_from_numpy": (interop, lambda: interop.fitbo_gp_from_numpy(
+        {"state": _state_dict(), "alpha": np.ones(()), "Y_unwarp": np.zeros(4),
+         "x_obs_raw": np.zeros((4, 1)), "fobs_padded": np.zeros(4), "label": "wsabim",
+         "alpha_factor": 1.0, "bucket": 4, "optimiser": "lbfgs"})),
+    "fbgp_from_numpy": (interop, lambda: interop.fbgp_from_numpy(
+        {"Xobs": np.zeros((4, 1)), "fobs": np.zeros(4), "mask": np.ones(4),
+         "eta": np.ones(()), "w_qd": np.full(2, 0.5), "Theta_qd": np.ones((2, 4)),
+         "linv": np.stack([np.eye(4)] * 2), "alpha": np.zeros((2, 4))})),
+    "scale_mmlt_from_numpy": (interop, lambda: interop.scale_mmlt_from_numpy(
+        {"state": _state_dict(), "beta": np.zeros(()), "y_log": np.zeros(4),
+         "kernel_name": "rbf", "optimiser": "lbfgs"})),
 }
 
 

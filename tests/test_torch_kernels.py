@@ -187,6 +187,39 @@ def test_reference_horizon_bounds_exact_agreement():
     assert float((m32.double() - m64).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("m,q", [(128, 64), (100, 50)])
+def test_reference_horizon_holds_at_every_step(m, q):
+    """chip_smoke.py's CAR problems at the FBGP's (m = 100) and BASQ's
+    (m = 128) shapes: the float32 and float64 runs agree after every step
+    up to the horizon and part at the next; at m = 128 they meet again
+    within the tolerance after all n_take steps, so the horizon is found by
+    walking both runs, not by testing one step count."""
+    from sober_tpu_torch.core.rchq import null_basis
+
+    rng = np.random.default_rng(m)
+    x = torch.as_tensor(rng.normal(size=(m, m - q)), dtype=torch.float32)
+    mu = rng.uniform(0.1, 1.0, m)
+    mask = np.ones(m)
+    mask[-7:] = mu[-7:] = 0.0
+    mu = torch.as_tensor(mu / mu.sum(), dtype=torch.float32)
+    mask = torch.as_tensor(mask, dtype=torch.float32)
+    big_n, n_take, _ = null_basis(x, mu, m - q, mask)
+
+    def apart(k):
+        m32, e32 = car_eliminate_reference(mu, big_n, mask, k)
+        m64, e64 = car_eliminate_reference(mu.double(), big_n.double(),
+                                           mask.double(), k)
+        return float((m32.double() - m64).abs().max()) + (
+            0.0 if torch.equal(e32.double(), e64) else 1.0)
+
+    k = reference_horizon(mu, big_n, mask, n_take)
+    assert 10 <= k < n_take
+    assert all(apart(j) <= 1e-6 for j in range(1, k + 1))
+    assert apart(k + 1) > 1e-6
+    if m == 128:
+        assert apart(n_take) <= 1e-6
+
+
 # (m, q) -> the plan: the main path's shapes (m=200, q=100 at batch 100 and
 # in screening; m=400, q=200 at batch 200), the card tests' shapes, and the
 # edges of each variant
