@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eight paths. The first is one exact-GP batch-BO iteration on a continuous
+Nine paths. The first is one exact-GP batch-BO iteration on a continuous
 domain: a warm-started MAP refit of the GP hypers, the posterior cache, the
 incumbent eta, and the fused acquisition (pi weights, Nystrom features, the
 halving tree of Caratheodory eliminations). The second is one
@@ -21,7 +21,10 @@ bench.py's two FBGP configs: fbgp_refit (1000 hypersamples distilled to 50
 chains over 100 observations in 3-d) and Sober.step_fbgp (n_rec 8192,
 n_nys 256, batch 50), then examples/fbgp_hartmann.py's MES flow. The eighth
 is BASQ's evidence of a Gaussian likelihood at tutorial 05's quadrature
-sizes. The script
+sizes. The ninth is simulation-based inference: tutorial 05 on the ECM
+battery task (a TruncatedGaussian prior, next_batch(4096, 256, 50), BASQ),
+the README's guided SoberWrapper interface and tests/test_apps.py's
+expectation propagation. The script
 
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
@@ -70,7 +73,17 @@ sizes. The script
      MES batches of the Hartmann flow (legal batches, the best rising);
  14. runs BASQ.quadrature(8192, 256, 64) on the Gaussian evidence: within
      0.15 of the truth, posterior draws and the MAP near 0;
- 15. holds the RBF and CAR kernels at every shape phases 9-14 launched;
+ 15. runs tutorial 05 at its sizes (phase sbi_ecm: 5 batches, each legal,
+     inside the prior's box, moment error below 5e-3; BASQ at 8192/256/64;
+     the MAP beside the truth, no gate), after the ECM's Genz constant,
+     density and simulator on the card against the CPU (1e-5);
+ 16. runs the README's SoberWrapper at its sizes on the ECM spectrum with a
+     TruncatedGaussian prior, BOLFI and a forked pool, under a time limit
+     (phase sober_wrapper: legal batches, the diagonalization the CPU's);
+ 17. runs the identity-simulator EP (phase ep_flow: within 0.15 of theta*
+     and closer than the prior) and the Gibbs and tilting samplers at
+     tests/test_mvn.py's tail boxes (phase tmvn_tail: its tolerances);
+ 18. holds the RBF and CAR kernels at every shape phases 9-17 launched;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -82,6 +95,8 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -148,6 +163,30 @@ HARTMANN = (50, 1000, 100, 50, 8192, 256, 50, 3)
 # Gaussian evidence; its truth, log(sqrt(2 pi) 0.7 / 6), and the gate
 BASQ_QUAD = (8192, 256, 64)
 BASQ_TRUTH, BASQ_TOL = float(np.log(np.sqrt(2 * np.pi) * 0.7 / 6.0)), 0.15
+# tutorials/05_simulation_based_inference.py:19-21 (examples/sbi_ecm.py:
+# 14-15): initial draws, iterations of fit -> update_model -> next_batch,
+# n_rec, n_nys, batch; the quadrature's n_quad, n_nys, nodes; posterior and
+# MAP draws. The ECM's true parameters (tasks/ecm.py)
+SBI_ECM = (100, 5, 4096, 256, 50, 8192, 256, 64, 500, 2000)
+ECM_TRUTH = (2.0, -0.5, -1.0, 0.0, 0.5)
+ECM_BOUNDS = ((1.0, -2.0, -2.0, -2.0, -2.0), (3.0, 2.0, 2.0, 2.0, 2.0))
+# README.md:60-67's guided interface: model_initial_samples, run_SOBER's
+# model_samples_per_iteration (next_batch(400, 200, 100)) and the
+# iterations run of its 10, run_BASQ's integration nodes; the phase's limit
+WRAPPER = (100, 100, 3, 100)
+WRAPPER_SECONDS = 600
+# tests/test_apps.py:261's identity-simulator EP: theta*, initial samples,
+# one sweep of 2 SOBER iterations a site at batch 16 (surrogate samples 1024
+# and 64), BASQ at 32 nodes from 1024 and 64
+EP_THETA = (0.6, -0.4)
+EP_RUN = dict(ep_iterations=1, sober_iterations=2, model_samples_per_iteration=16,
+              surrogate_samples=1024, surrogate_effective_samples=64,
+              integration_nodes=32, basq_samples=1024, basq_effective_samples=64,
+              verbose=False)
+# tests/test_mvn.py's tail (rho 0.8 on [2, 4]^2) and low-acceptance
+# (identity on [3, 4]^2) boxes: draws, and the Gibbs and tilting mean and sd
+# tolerances in sd units
+TMVN_DRAWS, TMVN_TOL = 20_000, {"gibbs": (0.08, 0.10), "tilting": (0.04, 0.05)}
 # where the TPU kernels live that the CUDA kernels replace (the bit pack
 # computes the row sums |x| and |y| of the Pallas Tanimoto kernel)
 REPLACES = {"rbf_gram": "sober_tpu/ops/pallas_kernels.py:131",
@@ -499,7 +538,7 @@ def phase_small_vs_cpu() -> None:
     """The port on the card against the port on the CPU (all plain PyTorch
     references) on one small iteration, from the same fitted hypers."""
     from sober_tpu_torch.core.fused import fused_acquisition
-    from sober_tpu_torch.gp.exact import (GPConfig, GPParams, build_state,
+    from sober_tpu_torch.gp.exact import (GPConfig, build_state, map_params,
                                           fit_params, posterior_max_mean,
                                           predictive_covariance)
 
@@ -510,7 +549,7 @@ def phase_small_vs_cpu() -> None:
         x_obs, y_obs, x_cand, x_nys, pdf = make_problem(n_cand, n_nys, batch, 3, 40, dev)
         if dev == "cpu":
             params = fit_params(x_obs, (y_obs - y_obs.mean()) / y_obs.std(), cfg)
-        state = build_state(GPParams(*(p.to(dev) for p in params)), x_obs, y_obs, cfg)
+        state = build_state(map_params(lambda p: p.to(dev), params), x_obs, y_obs, cfg)
         eta = posterior_max_mean(state)
         idx, w, weights = fused_acquisition(state, eta, x_cand, x_nys, pdf, batch)
         check_batch(idx, w, n_cand, batch, f"small {dev}")
@@ -774,8 +813,9 @@ def state_to(state, dev):
     kernel = Kernel(state.kernel.name,
                     {k: v.to(dev) for k, v in state.kernel.params.items()})
     tensors = {f: getattr(state, f) for f in state._fields
-               if f not in ("config", "kernel")}
-    return state._replace(kernel=kernel, **{
+               if f not in ("config", "kernel", "mean_params")}
+    return state._replace(kernel=kernel, mean_params={
+        k: v.to(dev) for k, v in state.mean_params.items()}, **{
         f: None if t is None else t.to(dev) for f, t in tensors.items()})
 
 
@@ -1717,20 +1757,22 @@ def phase_fbgp_step(counts: dict) -> dict:
     return shapes
 
 
-def phase_fbgp_kernels(summary: dict, shapes: dict) -> None:
-    """The RBF kernel at the FBGP step's shapes that carry the most work
-    (n m launches), timed beside its plain version with their bounds and
-    launches per step (time_rbf)."""
+def phase_rbf_busiest(summary: dict, shapes: dict, config: str, per: int = 1,
+                      top: int = 4) -> None:
+    """The RBF kernel at the `top` shapes of a path that carry the most
+    work (n m launches), timed beside its plain version with their bounds
+    and launches per iteration (time_rbf; `shapes` counted over `per`
+    iterations), into summary["rbf_gram_" + config]."""
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
     rbf = [(key[1:], k) for key, k in shapes.items() if key[0] == "rbf_gram"]
-    rbf = sorted(rbf, key=lambda r: r[0][0] * r[0][1] * r[1], reverse=True)[:4]
+    rbf = sorted(rbf, key=lambda r: r[0][0] * r[0][1] * r[1], reverse=True)[:top]
     rows = []
     for (n, m, d), k in rbf:
-        scalar, _ = time_rbf("fbgp_step", d, n, m, k, rng, dev)
+        scalar, _ = time_rbf(config, d, n, m, k / per, rng, dev)
         rows.append({key: scalar[key] for key in ("shape", "launches_per_iteration", "ms",
                                                   "plain_ms", "bound_ms", "bound_by")})
-    summary["rbf_gram_fbgp_step"] = rows
+    summary["rbf_gram_" + config] = rows
 
 
 def phase_fbgp_hartmann(counts: dict) -> None:
@@ -1822,6 +1864,344 @@ def phase_basq_evidence(counts: dict) -> None:
          posterior_mean=post_mean, map=map_x, launches_on_path=path)
 
 
+def ecm_spectrum(theta, omega, log_mu, log_sd):
+    """The two-RC ECM's impedance spectrum [Re Z, Im Z] (B, 2n) of parameter
+    rows (or one row) in numpy, as sober_tpu_torch/tasks/ecm.py computes it:
+    the host model that phase_sober_wrapper's SoberWrapper calls, one row a
+    pool worker."""
+    theta = np.atleast_2d(np.asarray(theta, np.float64))
+    rt, r1_, t1, r2_, t2 = (theta[:, k:k + 1] for k in range(5))
+    r1, r2 = np.exp(-np.exp(r1_)), np.exp(-np.exp(r2_))
+    z1 = np.log(omega)[None, :] - (log_sd * t1 + log_mu)
+    z2 = np.log(omega)[None, :] - (log_sd * t2 + log_mu)
+    big_rt = np.exp(rt)
+    re = big_rt * ((1.0 - r1 - r2) + r1 / 2 * (1 - np.tanh(z1)) + r2 / 2 * (1 - np.tanh(z2)))
+    im = big_rt * ((r1 / 2) / np.cosh(z1) + (r2 / 2) / np.cosh(z2))
+    return np.concatenate([re, im], axis=1)
+
+
+def capture_every_recombination(sober) -> list:
+    """Like capture_recombination, but keeps every call's inputs, outputs
+    and the recombination kernel of its iteration."""
+    seen, inner = [], sober.sampling_recombination
+
+    def run(x_cand, x_nys, weights, batch, calc_obj=None):
+        idx, w = inner(x_cand, x_nys, weights, batch, calc_obj=calc_obj)
+        seen.append(dict(x_cand=x_cand, x_nys=x_nys, weights=weights, idx=idx, w=w,
+                         kernel=sober.kernel))
+        return idx, w
+
+    sober.sampling_recombination = run
+    return seen
+
+
+def phase_small_ecm_vs_cpu() -> dict:
+    """The ECM task's deterministic stages on the card against the CPU:
+    the prior's Genz constant, its density at 256 rows and the simulator's
+    discrepancy and log-likelihood, each within 1e-5 relative, and the
+    observed spectrum (its noise drawn on the CPU from the seed on both)
+    within 1e-5 of its largest value: a noise drawn apart would differ by
+    its sd, 0.26, while the float32 spectrum differs by the ulps of tanh
+    and exp (elementwise up to 1.04e-5 relative at its smallest values on
+    an H100)."""
+    from sober_tpu_torch.tasks import setup_ecm_two
+
+    dev = torch.device("cuda")
+    prior_c, sim_c = setup_ecm_two(device="cpu")
+    prior_g, sim_g = setup_ecm_two(device=dev)
+    lo, hi = np.asarray(ECM_BOUNDS)
+    theta = np.random.default_rng(9).uniform(lo - 0.2, hi + 0.2, (256, 5)).astype(np.float32)
+    rel = lambda g, c: float(((g.cpu() - c).abs() / c.abs().clamp_min(1e-30)).max())
+    scaled = lambda g, c: float((g.cpu() - c).abs().max() / c.abs().max())
+    t_c, t_g = torch.as_tensor(theta), torch.as_tensor(theta, device=dev)
+    inside = prior_c.pdf(t_c) > 0
+    errs = {"constant": rel(prior_g.constant, prior_c.constant),
+            "pdf": rel(prior_g.pdf(t_g)[inside.to(dev)], prior_c.pdf(t_c)[inside]),
+            "pdf_zeros_agree": bool(torch.equal(prior_g.pdf(t_g).cpu() == 0, ~inside)),
+            "reZ": scaled(sim_g.reZ, sim_c.reZ), "imZ": scaled(sim_g.imZ, sim_c.imZ)}
+    for name, g, c in zip(("discrepancy", "loglik"), sim_g(t_g), sim_c(t_c)):
+        errs[name] = rel(g, c)
+    require(all(v < 1e-5 for k, v in errs.items() if k != "pdf_zeros_agree")
+            and errs["pdf_zeros_agree"], f"small ecm: card against cpu {errs}")
+    return errs
+
+
+def phase_sbi_ecm(counts: dict) -> tuple[dict, dict]:
+    """tutorials/05_simulation_based_inference.py on the card at its sizes
+    (SBI_ECM): setup_ecm_two, 100 draws of its truncated Gaussian, then 5 x
+    (fit_gp_padded -> update_model -> next_batch(4096, 256, 50)) on the
+    discrepancy, each batch checked (legal, inside the prior's box, moment
+    error below 5e-3) with its stages by host clock after a sync, launches,
+    host reads and peak memory; one more iteration under torch.profiler for
+    the busy share; then ScaleMmltGP on the log-likelihoods,
+    BASQ.quadrature(8192, 256, 64), sampling_posterior(500) and MAP(2000),
+    the MAP's distance to the truth reported, not gated. First the small
+    problem on the card against the CPU (phase_small_ecm_vs_cpu). Returns
+    the RBF and CAR launches by shape over the 5 iterations, and in the
+    BQ model's fit and BASQ (quadrature, posterior draws, MAP)."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.apps.basq import BASQ
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.gp.warped import ScaleMmltGP
+    from sober_tpu_torch.tasks import setup_ecm_two
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    small = phase_small_ecm_vs_cpu()
+    n_init, iters, n_rec, n_nys, batch, n_quad, n_qnys, n_nodes, n_post, n_map = SBI_ECM
+    dev = torch.device("cuda")
+    with host_reads() as probe_sync:
+        torch.cuda.synchronize()
+    keys = KeyRing(0, device=dev)
+    prior, sim = setup_ecm_two(device=dev)
+    lo, hi = prior.bounds[0], prior.bounds[1]
+    x = prior.sample(keys.next(), n_init)
+    d, ll = sim(x)
+    sober = Sober(prior, fit_gp_padded(x, d))
+    seen = capture_recombination(sober)
+    torch.cuda.synchronize()
+    zero_counts()
+    rows, path, shapes = [], {}, {}
+    for it in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches = {}
+        with counted(launches, shapes):
+            t0 = time.perf_counter()
+            model = fit_gp_padded(x, d)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            sober.update_model(model)
+            with host_reads() as reads:
+                xb = sober.next_batch(n_rec, n_nys, batch, verbose=True)
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        checked = check_continuous_batch(sober, seen, xb, lo, hi, batch, f"sbi_ecm {it}")
+        db, llb = sim(xb)
+        x, d, ll = torch.cat([x, xb]), torch.cat([d, db]), torch.cat([ll, llb])
+        t = sober.last_timings
+        rows.append({"iteration": it, "proposal": type(sober.prior).__name__,
+                     "n_obs": int(model.mask.sum()), "fit_ms": 1e3 * fit_s,
+                     "candidates_ms": 1e3 * t["candidates"],
+                     "recombination_ms": 1e3 * t["recombination"],
+                     "next_batch_ms": 1e3 * t["total"], "launches": launches,
+                     # verbose syncs the device three times
+                     "host_reads": reads[0] - 3 * probe_sync[0],
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     **checked, "best_discrepancy": float(d.max())})
+        emit(phase="sbi_ecm_iteration", **rows[-1])
+    median = {k: statistics.median(r[k] for r in rows[1:4]) for k in
+              ("fit_ms", "candidates_ms", "recombination_ms", "next_batch_ms",
+               "host_reads", "peak_mem_gib")}
+
+    def one_more():
+        sober.update_model(fit_gp_padded(x, d))
+        sober.next_batch(n_rec, n_nys, batch)
+    with counted(path):
+        profiled = busy_share(one_more)
+    quad_shapes = {}
+    with counted(path, quad_shapes):
+        bq_model = ScaleMmltGP(x, ll)
+        basq = BASQ(prior, bq_model, sober, verbose=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        elml, avlml = basq.quadrature(n_quad, n_qnys, n_nodes)
+        torch.cuda.synchronize()
+        quad_ms = 1e3 * (time.perf_counter() - t0)
+        post = basq.sampling_posterior(n_post)
+        map_est = basq.MAP(n_map)
+    require(bool(torch.isfinite(post).all()) and bool(((post >= lo) & (post <= hi)).all())
+            and np.isfinite(elml), f"sbi_ecm: posterior draws or evidence {elml}")
+    add_counts(counts, path, "sbi_ecm")
+    truth = torch.tensor(ECM_TRUTH, device=dev)
+    emit(phase="sbi_ecm", n_init=n_init, iterations=iters, n_rec=n_rec, n_nys=n_nys,
+         batch=batch, d=5, prior_constant=float(prior.constant), gibbs=prior._use_gibbs,
+         median_iterations_2_to_4=median, launches_on_path=path,
+         profile_one_iteration=profiled, small_vs_cpu=small, quadrature=[n_quad, n_qnys, n_nodes],
+         quadrature_ms=quad_ms, elml=elml, avlml=avlml,
+         posterior_mean=post.mean(0).tolist(), map=map_est.tolist(), truth=list(ECM_TRUTH),
+         map_distance=float(torch.linalg.norm(map_est - truth)),
+         best_discrepancy=float(d.max()),
+         launches_by_shape={" ".join(map(str, k)): v for k, v in shapes.items()},
+         basq_launches_by_shape={" ".join(map(str, k)): v for k, v in quad_shapes.items()})
+    return shapes, quad_shapes
+
+
+class PhaseTimeout(Exception):
+    pass
+
+
+@contextlib.contextmanager
+def time_limit(seconds: int, label: str):
+    """Raises PhaseTimeout in the block after `seconds` (SIGALRM); a pool
+    the block holds is terminated as its `with` unwinds."""
+    import signal
+
+    def expire(signum, frame):
+        raise PhaseTimeout(f"{label}: over its limit of {seconds} s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def phase_sober_wrapper(counts: dict) -> None:
+    """README.md:60-67's guided interface on the card at its sizes
+    (WRAPPER): SoberWrapper(model, data, bounds, model_initial_samples=100)
+    on the ECM spectrum as a numpy simulator (`ecm_spectrum`) with the
+    observed spectrum as data, prior="TruncatedGaussian" and use_bolfi=True
+    (the parabolic-mean GP and SOBERUCB on the card) and
+    parallelization=True (multiprocessing.Pool() forked after CUDA is up), then
+    run_SOBER(3 of its 10 iterations, model_samples_per_iteration=100, so
+    next_batch(400, 200, 100)) and run_BASQ(100), under a time limit. Every
+    batch legal and inside the unit cube, the diagonalization equal to the
+    CPU wrapper's; the moment errors are reported (calc_obj spends the
+    batch's freedom, so they are not gated)."""
+    from sober_tpu_torch.apps import SoberWrapper
+    from sober_tpu_torch.tasks import setup_ecm_two
+
+    n_init, per_iter, iters, nodes = WRAPPER
+    dev = torch.device("cuda")
+    _, sim = setup_ecm_two(device="cpu")
+    omega = sim.omega.double().numpy()
+    kw = dict(model=ecm_spectrum, data=torch.cat([sim.reZ, sim.imZ]).numpy(),
+              bounds=[list(ECM_BOUNDS[0]), list(ECM_BOUNDS[1])],
+              prior="TruncatedGaussian", use_bolfi=True, parallelization=True, seed=0,
+              omega=omega, log_mu=float(sim.mu), log_sd=float(sim.sigma))
+    cpu = SoberWrapper(**kw, model_initial_samples=4, standalone=False, device="cpu")
+    zero_counts()
+    path, t0 = {}, time.perf_counter()
+    with time_limit(WRAPPER_SECONDS, "sober_wrapper"), counted(path):
+        w = SoberWrapper(**kw, model_initial_samples=n_init, device=dev)
+        t_init = time.perf_counter()
+        seen = capture_every_recombination(w.sober)
+        w.run_SOBER(sober_iterations=iters, model_samples_per_iteration=per_iter,
+                    verbose=False)
+        t_sober = time.perf_counter()
+        samples, map_params, best, elml, avlml = w.run_BASQ(nodes, verbose=False)
+        t_basq = time.perf_counter()
+    require(torch.equal(w.diagonalization.cpu(), cpu.diagonalization),
+            "sober_wrapper: diagonalization differs from the CPU's")
+    require(len(seen) == iters, f"sober_wrapper: {len(seen)} batches")
+    moms = []
+    for it, rec in enumerate(seen):
+        check_batch(rec["idx"], rec["w"], rec["x_cand"].shape[0], per_iter,
+                    f"sober_wrapper {it}")
+        xb = rec["x_cand"][rec["idx"]]
+        require(bool(torch.isfinite(xb).all()) and bool(((xb >= 0) & (xb <= 1)).all()),
+                f"sober_wrapper {it}: batch outside the unit cube")
+        moms.append(moment_error(rec["kernel"], rec["x_cand"], rec["x_nys"],
+                                 rec["weights"], rec["idx"], rec["w"], per_iter))
+    require(w.X_all.shape[0] == n_init + iters * per_iter and np.isfinite(elml),
+            f"sober_wrapper: {w.X_all.shape[0]} evaluations, evidence {elml}")
+    add_counts(counts, path, "sober_wrapper")
+    emit(phase="sober_wrapper", model_initial_samples=n_init,
+         model_samples_per_iteration=per_iter, iterations=iters, basq_nodes=nodes,
+         prior=type(w.prior).__name__, gibbs=w.prior._use_gibbs,
+         surrogate_mean=w.surrogate_model.config.mean, pool_start_method=multiprocessing.get_start_method(),
+         pool_workers=os.cpu_count(),
+         init_s=t_init - t0, run_sober_s=t_sober - t_init, run_basq_s=t_basq - t_sober,
+         iteration_s=[r[0] for r in w.results], best_per_iteration=[r[1] for r in w.results],
+         moment_err=moms, elml=elml, avlml=avlml, map=map_params.tolist(),
+         best_observed=best.tolist(), truth=list(ECM_TRUTH), launches_on_path=path,
+         diag_order=w.diag_order)
+
+
+def ep_simulator(x, **kwargs):
+    """tests/test_apps.py:261's identity simulator."""
+    x = np.atleast_2d(np.asarray(x))
+    return np.stack([x[:, 0], x[:, 1]], axis=1)
+
+
+def ep_features(obs):
+    obs = np.asarray(obs)
+    return [obs[..., 0], obs[..., 1]]
+
+
+def phase_ep_flow(counts: dict) -> None:
+    """tests/test_apps.py:261's expectation propagation on the card: the
+    identity simulator, theta* = (0.6, -0.4), 20 initial samples, one sweep
+    of 2 SOBER iterations at batch 16 a site (EP_RUN). The posterior mean
+    must land within 0.15 of theta* and closer than the prior's, the
+    posterior tighter than the prior, as the JAX test asserts."""
+    from sober_tpu_torch.apps import ExpectationPropagation
+
+    dev = torch.device("cuda")
+    theta = np.asarray(EP_THETA)
+    zero_counts()
+    path, t0 = {}, time.perf_counter()
+    with counted(path):
+        ep = ExpectationPropagation(model=ep_simulator, data=theta,
+                                    feature_extractor=ep_features, model_initial_samples=20,
+                                    bounds=[[-1.0, -1.0], [1.0, 1.0]], parallelization=False,
+                                    seed=0, device=dev)
+
+        def original(m):
+            return ep.reverse_transform(ep.denormalize_input(torch.atleast_2d(m)))[0].cpu().numpy()
+
+        prior_err = float(np.abs(original(ep.normalized_mean) - theta).max())
+        ep.run_Expectation_Propagation(**EP_RUN)
+    post_cov = torch.linalg.inv(ep.Q)
+    post_mean = original(post_cov @ ep.r)
+    err = float(np.abs(post_mean - theta).max())
+    tighter = bool((torch.diag(post_cov) < torch.diag(ep.normalized_covariance)).all())
+    require(err < 0.15 and err < prior_err and tighter,
+            f"ep_flow: error {err} (prior {prior_err}), tighter {tighter}")
+    add_counts(counts, path, "ep_flow")
+    emit(phase="ep_flow", theta_star=list(EP_THETA), posterior_mean=post_mean.tolist(),
+         error=err, prior_error=prior_err, posterior_var=torch.diag(post_cov).tolist(),
+         seconds=time.perf_counter() - t0, launches_on_path=path)
+
+
+def phase_tmvn_tail() -> None:
+    """The Gibbs and tilting samplers on the card at tests/test_mvn.py's
+    tail box (rho 0.8 on [2, 4]^2, truth by 6,000,000 numpy rejection
+    proposals) and low-acceptance box (identity on [3, 4]^2, truth by
+    scipy's truncnorm): 20,000 draws inside the box, marginal means and sds
+    within that file's tolerances in sd units (TMVN_TOL)."""
+    from scipy.stats import truncnorm
+
+    from sober_tpu_torch.priors import TruncatedMVN
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    rho = np.array([[1.0, 0.8], [0.8, 1.0]])
+    keep = []
+    for _ in range(12):
+        raw = rng.standard_normal((500_000, 2)) @ np.linalg.cholesky(rho).T
+        keep.append(raw[((raw > 2.0) & (raw < 4.0)).all(axis=1)])
+    keep = np.concatenate(keep)
+    tn = truncnorm(3.0, 4.0)
+    boxes = {"tail": (rho, 2.0, 4.0, keep.mean(0), keep.std(0)),
+             "low_acceptance": (np.eye(2), 3.0, 4.0, np.full(2, tn.mean()), np.full(2, tn.std()))}
+    keys, out = KeyRing(0, device=dev), {}
+    for name, (cov, a, b, mean, sd) in boxes.items():
+        bounds = np.array([[a, a], [b, b]])
+        for method, (mean_tol, sd_tol) in TMVN_TOL.items():
+            sampler = TruncatedMVN(np.zeros(2), cov, bounds, method=method, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = sampler.sample(keys.next(), TMVN_DRAWS)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            xs = x.double().cpu().numpy()
+            mean_err = np.abs(xs.mean(0) - mean) / sd
+            sd_err = np.abs(xs.std(0) - sd) / sd
+            label = f"tmvn_tail {name} {method}"
+            require(bool(((xs >= a - 1e-4) & (xs <= b + 1e-4)).all()), f"{label}: outside")
+            require(bool((mean_err < mean_tol).all() and (sd_err < sd_tol).all()),
+                    f"{label}: mean err {mean_err}, sd err {sd_err}")
+            out[f"{name}_{method}"] = {"mean_err_sd": mean_err.tolist(),
+                                       "sd_err_rel": sd_err.tolist(), "ms": ms,
+                                       "burn_in": sampler.burn_in,
+                                       "accept_rate": sampler.last_accept_rate}
+    emit(phase="tmvn_tail", draws=TMVN_DRAWS, tolerances=TMVN_TOL, **out)
+
+
 def main() -> None:
     smi, sm_clock = phase_device()
     phase_build()
@@ -1845,9 +2225,15 @@ def main() -> None:
     phase_discrete_flows(counts)
     phase_fbgp_refit(counts)
     phase_fbgp_sweep_factor()
-    phase_fbgp_kernels(summary, phase_fbgp_step(counts))
+    phase_rbf_busiest(summary, phase_fbgp_step(counts), "fbgp_step")
     phase_fbgp_hartmann(counts)
     phase_basq_evidence(counts)
+    ecm_shapes, quad_shapes = phase_sbi_ecm(counts)
+    phase_rbf_busiest(summary, ecm_shapes, "sbi_ecm", SBI_ECM[1])
+    phase_rbf_busiest(summary, quad_shapes, "sbi_quadrature", top=2)
+    phase_sober_wrapper(counts)
+    phase_ep_flow(counts)
+    phase_tmvn_tail()
     phase_path_shapes()
     kernels = []
     for name in ("rbf_gram", "car_eliminate", "tanimoto_gram", "pack_bits"):
@@ -1863,10 +2249,12 @@ def main() -> None:
                         **{k: s[k] for k in ("gram_ms", "product_library_ms",
                                              "store_library_ms", "step_floor_ms")
                            if k in s}})
-    # the RBF Gram at the Ising step's d = 24 strips and the FBGP step's
-    # busiest shapes
+    # the RBF Gram at the Ising step's d = 24 strips and the FBGP step's and
+    # tutorial 05's busiest shapes
     kernels[0]["ising_d24_strips"] = summary["rbf_gram_ising_d24"]
     kernels[0]["fbgp_step_shapes"] = summary["rbf_gram_fbgp_step"]
+    kernels[0]["sbi_ecm_shapes"] = summary["rbf_gram_sbi_ecm"]
+    kernels[0]["sbi_quadrature_shapes"] = summary["rbf_gram_sbi_quadrature"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -92,7 +92,11 @@ def _continuous_draw(prior, gen: torch.Generator, n: int,
                      redraw: bool) -> torch.Tensor:
     """n rows of a continuous proposal. Only a first draw follows (and
     advances) a Uniform's Sobol sequence; its redraws are pseudo-random, as
-    the JAX pipeline's refill draws are."""
+    the JAX pipeline's refill draws are. A TruncatedGaussian draws by
+    rejection, or by its Gibbs chain of burn_in + thin sweeps when its box
+    holds little mass (`_use_gibbs`), first draw and refills alike
+    (sober_tpu/core/fused_sampling.py:_tgauss_pipeline); its density is
+    exp(mvn_logpdf) / constant inside the closed box and 0 outside."""
     if redraw and isinstance(prior, Uniform):
         return prior.scale(torch.rand((n, prior.n_dims), generator=gen,
                                       device=prior.device))

@@ -3,15 +3,15 @@
 
 Every domain label of the JAX package is ported. Dataset: pi over the
 whole (masked) pool, static top-k pruning and an inverse-weight Nystrom
-subset (core/fused_sampling.py). Continuous, binary, categorical,
+subset (core/fused_sampling.py). Continuous (a Uniform, Gaussian,
+TruncatedGaussian or WKDE proposal), binary, categorical,
 mixedbinary and mixedcategorical: a pool from the proposal, the proposal
 refit, refill draws and a Nystrom subset, as one eager pipeline,
 `sampling_candidates`, built from `sampling` (or `categorical_sampling`),
 `recursive_sampling`, `update_prior` and `_select_nys`. `MixtureSampler`
 draws from a Sober's learned proposal mixed with the prior (BASQ's
-posterior sampling). The TruncatedGaussian proposal waits for ROADMAP.md
-queue 1, item 13, and the JAX package's `mesh`/`schedule` arguments for
-item 16.
+posterior sampling). The JAX package's `mesh`/`schedule` arguments wait
+for ROADMAP.md queue 1, item 16.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Callable
 import torch
 
 from ..priors.base import BasePrior
-from ..priors.continuous import Gaussian, Uniform
+from ..priors.continuous import Gaussian, TruncatedGaussian, Uniform
 from ..priors.discrete import (BinaryPrior, CategoricalPrior,
                                MixedBinaryPrior, MixedCategoricalPrior)
 from ..priors.wkde import WeightedKernelDensityEstimation
@@ -32,7 +32,7 @@ from .prior_update import (update_binary_prior, update_categorical_prior,
 from .rchq import recombination
 
 # the continuous proposals the pipeline takes
-CONTINUOUS = (Uniform, Gaussian, WeightedKernelDensityEstimation)
+CONTINUOUS = (Uniform, Gaussian, TruncatedGaussian, WeightedKernelDensityEstimation)
 LABELS = ("dataset", "continuous", "binary", "categorical", "mixedbinary",
           "mixedcategorical")
 
@@ -65,10 +65,9 @@ class EmpiricalSampler(RecombinationSampler):
     def __init__(self, prior: BasePrior, pi, kernel: Callable,
                  thresh: int = 5, label: str = "mixedbinary", seed: int = 0):
         if label == "continuous" and not isinstance(prior, CONTINUOUS):
-            raise NotImplementedError(
-                f"continuous prior {type(prior).__name__}: the Uniform, "
-                "Gaussian and WKDE proposals are ported; TruncatedGaussian "
-                "is ROADMAP.md queue 1, item 13")
+            raise TypeError(
+                f"continuous prior {type(prior).__name__}: the proposals are "
+                "Uniform, Gaussian, TruncatedGaussian and WKDE")
         if label not in LABELS:
             raise ValueError(f"domain label {label!r} is not one of {LABELS}")
         super().__init__(kernel, thresh=thresh, seed=seed,
@@ -88,8 +87,9 @@ class EmpiricalSampler(RecombinationSampler):
         """Reset the proposal to the original domain prior
         (SOBER/_sampler.py:87-111), rebuilt from the original's attributes:
         a fresh Uniform over the original box (its Sobol sequence from
-        offset 0) or the original bounds-less Gaussian itself; fresh 0.5
-        Bernoulli or categorical masses; a fresh mixed prior."""
+        offset 0; a TruncatedGaussian's box too) or the original
+        bounds-less Gaussian itself; fresh 0.5 Bernoulli or categorical
+        masses; a fresh mixed prior."""
         p, label = self.prior_initial, self.label
         dev = p.device
         if label == "continuous":
@@ -109,9 +109,9 @@ class EmpiricalSampler(RecombinationSampler):
 
     def update_prior(self, x_cand, weights):
         """Fit the proposal to the weighted pool (SOBER/_sampler.py:113-157):
-        a continuous proposal as a WKDE of at most 4096 components (a
-        Gaussian's WKDE has no bounds), a Bernoulli or categorical one by
-        its MLE, a mixed one block by block. For the categorical labels
+        a continuous proposal as a WKDE of at most 4096 components, bounded
+        by the proposal's box (a Gaussian's WKDE has none), a Bernoulli or
+        categorical one by its MLE, a mixed one block by block. For the categorical labels
         x_cand holds category indices in the discrete block."""
         label = self.label
         if label == "continuous":

@@ -6,7 +6,7 @@ stagnation) -> the pi-weighted candidate pool -> a Nystrom subset ->
 kernel recombination -> the batch, with an optional exploit polish on
 continuous domains. `step` refits an exact GP first, `step_fbgp` a
 fully-Bayesian GP. Ported for every domain: continuous (Uniform, Gaussian,
-WKDE proposals), binary, categorical, mixed and dataset; and for every model
+TruncatedGaussian, WKDE proposals), binary, categorical, mixed and dataset; and for every model
 family: the exact GP, the FBGP (gp/fbgp.py) and the warped BQ model
 (gp/warped.py).
 """
@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..gp.exact import (GPConfig, GPState, fit_gp_padded, init_params,
-                        polish_posterior_mean, raw_params_from_state)
+                        param_tensors, polish_posterior_mean,
+                        raw_params_from_state)
 from ..gp.fbgp import _VBQ_CFG, FBGPAcquisitionFunction, FitboGP, fbgp_refit
 from ..ops.tanimoto_gram import check_fingerprints
 from .pi import PI
@@ -35,7 +36,7 @@ class Sober(EmpiricalSampler):
 
         Args:
           prior: a prior from sober_tpu_torch.priors (Uniform, Gaussian,
-                 WeightedKernelDensityEstimation, BinaryPrior,
+                 TruncatedGaussian, WeightedKernelDensityEstimation, BinaryPrior,
                  CategoricalPrior, MixedBinaryPrior, MixedCategoricalPrior
                  or DatasetPrior)
           model: a fitted exact-GP GPState, or a model exposing is_fbgp
@@ -304,7 +305,9 @@ class Sober(EmpiricalSampler):
             return None
         cand = raw_params_from_state(state)
         ref = init_params(cfg, n_dims, device=state.x.device)
-        if any(a.shape != b.shape for a, b in zip(cand, ref)):
+        have, want = param_tensors(cand), param_tensors(ref)
+        if len(have) != len(want) or any(a.shape != b.shape
+                                         for a, b in zip(have, want)):
             return None
         return cand
 

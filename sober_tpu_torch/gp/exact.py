@@ -11,7 +11,10 @@ Tanimoto Gram, whose inputs never need a gradient. The exploit polish
 (`polish_posterior_mean`) differentiates the posterior mean in its inputs,
 through the RBF kernel's autograd Function.
 
-Only the zero prior mean is ported; the parabolic (BOLFI) mean waits.
+The prior mean is zero, or BOLFI's per-dimension parabola
+m(x) = sum_j a_j x_j^2 + b_j x_j + c (`mean="parabolic"`), whose
+parameters ride in `GPParams.mean_params` and `GPState.mean_params` and
+take Normal MAP priors (`GPConfig.mean_priors`).
 """
 from __future__ import annotations
 
@@ -40,22 +43,31 @@ class GPConfig:
     use_priors: bool = False
     fit_iters: int = 100
     fit_lr: float = 0.1
+    # "zero" (SOBER/_gp.py:18) or "parabolic" (BOLFI)
     mean: str = "zero"
+    # ls_prior may hold per-dimension tuples: an ARD kernel with one Gamma
+    # prior a lengthscale
     ls_prior: Optional[tuple] = None
     os_prior: Optional[tuple] = None
+    # the parabolic mean's Normal priors: ((a_mu...), (a_var...), (b_mu...),
+    # (b_var...), c_mu, c_var) (SOBER/BOLFI/_gpytorch_bolfi_model.py:389-446)
+    mean_priors: Optional[tuple] = None
 
     def __post_init__(self):
         if self.kernel_name not in KERNELS:
             raise ValueError(f"unknown kernel {self.kernel_name!r}")
-        if self.mean != "zero":
-            raise NotImplementedError(
-                f"mean={self.mean!r}: only the zero mean is ported")
+        if self.mean not in ("zero", "parabolic"):
+            raise ValueError(f"mean={self.mean!r}: 'zero' or 'parabolic'")
 
 
 class GPParams(NamedTuple):
     raw_lengthscale: torch.Tensor  # () or (d,) if ARD
     raw_outputscale: torch.Tensor
     raw_noise: torch.Tensor
+    # the mean's parameters, empty for the zero mean; for the parabolic one
+    # {"raw_a": (d,), "b": (d,), "c": ()}, a = softplus(raw_a) > 0
+    # (SOBER/BOLFI/_gpytorch_bolfi_model.py:55-57)
+    mean_params: dict = {}
 
 
 class GPState(NamedTuple):
@@ -75,6 +87,8 @@ class GPState(NamedTuple):
     # (n, n) explicit L^-1: prediction against a wide query axis is then a
     # matmul instead of a triangular solve; None on hand-built states
     linv: Optional[torch.Tensor] = None
+    # the fitted mean's parameters (GPParams.mean_params)
+    mean_params: dict = {}
 
 
 # ----------------------------------------------------------------------------
@@ -107,22 +121,55 @@ def materialize(params: GPParams, cfg: GPConfig) -> tuple[Kernel, torch.Tensor]:
 
 def init_params(cfg: GPConfig, n_dims: int, dtype=torch.float32,
                 device=None) -> GPParams:
-    """The starting raw params, on `device` (CUDA unless given)."""
+    """The starting raw params, on `device` (CUDA unless given). A parabolic
+    mean starts at its priors' means (a at least 1e-4), or at a = 1, b = 0,
+    c = 0 without priors."""
     device = resolve_device(device)
     shape = (n_dims,) if cfg.ard else ()
     f = lambda v: torch.tensor(v, dtype=dtype, device=device)
     raw_noise = _inv_interval(torch.sqrt(f(cfg.noise_lo * cfg.noise_hi)),
                               cfg.noise_lo, cfg.noise_hi)
+    mean_params = {}
+    if cfg.mean == "parabolic":
+        if cfg.mean_priors is not None:
+            a_mu, _, b_mu, _, c_mu, _ = cfg.mean_priors
+            a0, b0, c0 = torch.clamp_min(f(a_mu), 1e-4), f(b_mu), f(c_mu)
+        else:
+            a0 = torch.ones(n_dims, dtype=dtype, device=device)
+            b0 = torch.zeros(n_dims, dtype=dtype, device=device)
+            c0 = f(0.0)
+        mean_params = {"raw_a": _inv_softplus(a0), "b": b0, "c": c0}
     return GPParams(
         raw_lengthscale=torch.zeros(shape, dtype=dtype, device=device),
         raw_outputscale=_inv_softplus(f(1.0)),
         raw_noise=raw_noise,
+        mean_params=mean_params,
     )
 
 
-def mean_value(cfg: GPConfig, x: torch.Tensor) -> torch.Tensor:
-    """Prior mean m(x): the zero mean (SOBER/_gp.py:18)."""
-    return torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+def mean_value(cfg: GPConfig, x: torch.Tensor,
+               mean_params: Optional[dict] = None) -> torch.Tensor:
+    """Prior mean m(x): zero (SOBER/_gp.py:18), or BOLFI's parabola
+    sum_j a_j x_j^2 + b_j x_j + c (ParabolicMean.forward,
+    SOBER/BOLFI/_gpytorch_bolfi_model.py:155-165)."""
+    if cfg.mean == "zero" or not mean_params:
+        return torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    a = torch.nn.functional.softplus(mean_params["raw_a"])
+    return (x ** 2) @ a + x @ mean_params["b"] + mean_params["c"]
+
+
+def param_tensors(params: GPParams) -> list[torch.Tensor]:
+    """Every tensor of a GPParams: the three kernel and noise leaves, then
+    the mean's parameters in key order."""
+    return [params.raw_lengthscale, params.raw_outputscale, params.raw_noise,
+            *(params.mean_params[k] for k in sorted(params.mean_params))]
+
+
+def map_params(fn, params: GPParams) -> GPParams:
+    """A GPParams with `fn` applied to each of its tensors."""
+    return GPParams(fn(params.raw_lengthscale), fn(params.raw_outputscale),
+                    fn(params.raw_noise),
+                    {k: fn(v) for k, v in params.mean_params.items()})
 
 
 # ----------------------------------------------------------------------------
@@ -133,6 +180,12 @@ def _gamma_logpdf(x, a, b):
     a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
     b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
     return a * torch.log(b) - torch.lgamma(a) + (a - 1.0) * torch.log(x) - b * x
+
+
+def _normal_logpdf(x, mu, var):
+    mu = torch.as_tensor(mu, dtype=x.dtype, device=x.device)
+    var = torch.clamp_min(torch.as_tensor(var, dtype=x.dtype, device=x.device), 1e-12)
+    return -0.5 * ((x - mu) ** 2 / var + torch.log(2 * math.pi * var))
 
 
 def _masked_gram(k: torch.Tensor, noise, mask):
@@ -191,7 +244,7 @@ def neg_mll(params: GPParams, x: torch.Tensor, y: torch.Tensor,
     """Negative (MAP) marginal log likelihood per datum, as gpytorch's
     ExactMarginalLogLikelihood. `mask` marks real rows of a padded buffer."""
     kernel, noise = materialize(params, cfg)
-    resid = y - mean_value(cfg, x)
+    resid = y - mean_value(cfg, x, params.mean_params)
     if mask is not None:
         resid = resid * mask
         n = torch.sum(mask)
@@ -222,6 +275,13 @@ def neg_mll(params: GPParams, x: torch.Tensor, y: torch.Tensor,
             mll = mll + torch.sum(_gamma_logpdf(kernel.params["lengthscale"],
                                                 ls_a, ls_b))
         mll = mll + _gamma_logpdf(kernel.params["outputscale"], os_a, os_b)
+        if cfg.mean == "parabolic" and cfg.mean_priors is not None:
+            a_mu, a_var, b_mu, b_var, c_mu, c_var = cfg.mean_priors
+            mp = params.mean_params
+            a = torch.nn.functional.softplus(mp["raw_a"])
+            mll = mll + torch.sum(_normal_logpdf(a, a_mu, a_var))
+            mll = mll + torch.sum(_normal_logpdf(mp["b"], b_mu, b_var))
+            mll = mll + _normal_logpdf(mp["c"], c_mu, c_var)
     return -mll / n
 
 
@@ -230,11 +290,11 @@ def neg_mll(params: GPParams, x: torch.Tensor, y: torch.Tensor,
 # ----------------------------------------------------------------------------
 
 def _leaves(params: GPParams) -> GPParams:
-    return GPParams(*(p.detach().clone().requires_grad_(True) for p in params))
+    return map_params(lambda p: p.detach().clone().requires_grad_(True), params)
 
 
 def _detached(params: GPParams) -> GPParams:
-    return GPParams(*(p.detach().clone() for p in params))
+    return map_params(lambda p: p.detach().clone(), params)
 
 
 def _loss(params: GPParams, x, y, cfg, mask) -> float:
@@ -246,10 +306,10 @@ def _set_grads(params: GPParams, loss: torch.Tensor, cfg: GPConfig) -> None:
     """Backward, then nan_to_num the gradients (and freeze the noise when
     train_lik is off). A parameter the loss does not use (raw_lengthscale
     of a Tanimoto GP) gets a zero gradient, as jax.grad gives it."""
-    for p in params:
+    for p in param_tensors(params):
         p.grad = None
     loss.backward()
-    for p in params:
+    for p in param_tensors(params):
         p.grad = (torch.zeros_like(p) if p.grad is None
                   else torch.nan_to_num(p.grad))
     if not cfg.train_lik:
@@ -266,7 +326,7 @@ def _fit_adam(params0: GPParams, x, y, cfg: GPConfig, mask=None) -> GPParams:
     (reference: train_GP_with_Adam, SOBER/_gp.py:128-155). torch's Adam
     defaults (betas 0.9/0.999, eps 1e-8) are optax.adam's."""
     params = _leaves(params0)
-    opt = torch.optim.Adam(params, lr=cfg.fit_lr)
+    opt = torch.optim.Adam(param_tensors(params), lr=cfg.fit_lr)
     best_loss, best_params, n_plateau = math.inf, _detached(params0), 0
     for _ in range(cfg.fit_iters):
         loss = neg_mll(params, x, y, cfg, mask)
@@ -297,7 +357,7 @@ def _fit_lbfgs(params0: GPParams, x, y, cfg: GPConfig, mask=None) -> GPParams:
     torch's LBFGS takes one iteration per step() here, with history 10, and
     best-iterate tracking plus a 2-step plateau stop run around it."""
     params = _leaves(params0)
-    opt = torch.optim.LBFGS(params, lr=1, max_iter=1, max_eval=8 + 1,
+    opt = torch.optim.LBFGS(param_tensors(params), lr=1, max_iter=1, max_eval=8 + 1,
                             history_size=10, line_search_fn="strong_wolfe")
 
     def closure():
@@ -362,8 +422,9 @@ def build_state(params: GPParams, x: torch.Tensor, y_raw: torch.Tensor,
         y_mean = torch.zeros((), dtype=y_raw.dtype, device=y_raw.device)
         y_std = torch.ones((), dtype=y_raw.dtype, device=y_raw.device)
     y = (y_raw - y_mean) / y_std
-    kernel, noise = materialize(_detached(params), cfg)
-    resid = y - mean_value(cfg, x)
+    params = _detached(params)
+    kernel, noise = materialize(params, cfg)
+    resid = y - mean_value(cfg, x, params.mean_params)
     if mask is not None:
         resid = resid * mask
         y = y * mask
@@ -373,7 +434,7 @@ def build_state(params: GPParams, x: torch.Tensor, y_raw: torch.Tensor,
     eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
     linv = torch.linalg.solve_triangular(chol, eye, upper=False)
     return GPState(cfg, kernel, noise, x, y, y_mean, y_std, chol, alpha,
-                   mask, linv)
+                   mask, linv, params.mean_params)
 
 
 def raw_params_from_state(state: GPState) -> GPParams:
@@ -390,7 +451,8 @@ def raw_params_from_state(state: GPState) -> GPParams:
     lo, hi = cfg.noise_lo, cfg.noise_hi
     noise = torch.clamp(state.noise, lo + 1e-9 * (hi - lo), hi - 1e-9 * (hi - lo))
     return GPParams(raw_lengthscale=raw_ls, raw_outputscale=raw_os,
-                    raw_noise=_inv_interval(noise, lo, hi))
+                    raw_noise=_inv_interval(noise, lo, hi),
+                    mean_params=state.mean_params)
 
 
 def fit_gp(x: torch.Tensor, y: torch.Tensor, cfg: Optional[GPConfig] = None,
@@ -416,14 +478,16 @@ def fit_gp(x: torch.Tensor, y: torch.Tensor, cfg: Optional[GPConfig] = None,
 # prediction (standardized scale)
 # ----------------------------------------------------------------------------
 
-@torch.no_grad()
-def predict(state: GPState, xq: torch.Tensor, include_noise: bool = True):
+def posterior_mean_var(state: GPState, xq: torch.Tensor,
+                       include_noise: bool = True):
     """Posterior mean/variance at xq on the standardized-y scale (variance
-    includes observation noise, as the reference's predict does)."""
+    includes observation noise, as the reference's predict does),
+    differentiable in xq (on the card through the RBF kernel's autograd
+    Function)."""
     kqx = state.kernel.gram(xq, state.x)                  # (m, n)
     if state.mask is not None:
         kqx = kqx * state.mask[None, :]
-    mean = mean_value(state.config, xq) + kqx @ state.alpha
+    mean = mean_value(state.config, xq, state.mean_params) + kqx @ state.alpha
     if state.linv is not None:
         v = state.linv @ kqx.T                            # (n, m)
     else:
@@ -433,6 +497,13 @@ def predict(state: GPState, xq: torch.Tensor, include_noise: bool = True):
     if include_noise:
         var = var + state.noise
     return mean, var
+
+
+@torch.no_grad()
+def predict(state: GPState, xq: torch.Tensor, include_noise: bool = True):
+    """posterior_mean_var without gradients: the acquisitions, pi and the
+    polish's final read."""
+    return posterior_mean_var(state, xq, include_noise)
 
 
 def predict_raw(state: GPState, xq: torch.Tensor, include_noise: bool = True):
@@ -471,7 +542,7 @@ def posterior_mean(state: GPState, xq: torch.Tensor) -> torch.Tensor:
     kqx = state.kernel.gram(xq, state.x)
     if state.mask is not None:
         kqx = kqx * state.mask[None, :]
-    return mean_value(state.config, xq) + kqx @ state.alpha
+    return mean_value(state.config, xq, state.mean_params) + kqx @ state.alpha
 
 
 def polish_posterior_mean(state: GPState, starts: torch.Tensor,

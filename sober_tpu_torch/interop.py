@@ -19,7 +19,12 @@ distilled weights and chains, their caches L^-1 and alpha, the padded
 observations, mask and eta) and a ScaleMmltGP (its h-space GPState, beta and
 log-likelihoods): `fitbo_gp_*`, `hyperprior_*`, `fbgp_*` and `scale_mmlt_*`,
 each `_to_numpy` and `_from_numpy`, so that both packages compute on the
-same model. Nothing here imports jax.
+same model. A parabolic mean's parameters and priors ride in the GP dicts
+(`mean_params`, the config's `mean_priors`). A TruncatedGaussian goes across
+as its mu, cov, bounds, rounds and regime (`truncated_gaussian_*`), and the
+ECM simulator as its parameters, frequencies and observed spectrum
+(`ecm_from_numpy`), whose noise JAX draws from a stream torch cannot
+redraw. Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -34,11 +39,12 @@ from .gp.exact import GPConfig, GPParams, GPState
 from .gp.fbgp import ChainCache, FitboGP, FullyBayesianGP, RBFHyperPrior
 from .gp.warped import ScaleMmltGP
 from .ops.kernels import Kernel
-from .priors.continuous import Gaussian, Uniform
+from .priors.continuous import Gaussian, TruncatedGaussian, Uniform
 from .priors.dataset import DatasetPrior
 from .priors.discrete import (BinaryPrior, CategoricalPrior, MixedBinaryPrior,
                               MixedCategoricalPrior)
 from .priors.wkde import WeightedKernelDensityEstimation
+from .tasks.ecm import CanonicalECMTwoRCs
 from .utils.sobol import sobol_state
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(GPConfig)}
@@ -53,21 +59,21 @@ def _tensor(a, device) -> Optional[torch.Tensor]:
                            device=resolve_device(device))
 
 
-def _no_mean_params(d: dict) -> None:
-    if d.get("mean_params"):
-        raise NotImplementedError("only the zero mean is ported")
+def _mean_params(d: dict, device) -> dict:
+    return {k: _tensor(v, device) for k, v in (d.get("mean_params") or {}).items()}
 
 
 def gp_params_from_numpy(d: dict, device=None) -> GPParams:
     """GPParams from {raw_lengthscale, raw_outputscale, raw_noise[,
-    mean_params]} numpy arrays."""
-    _no_mean_params(d)
-    return GPParams(*(_tensor(d[k], device) for k in GPParams._fields))
+    mean_params (a dict)]} numpy arrays."""
+    return GPParams(_tensor(d["raw_lengthscale"], device),
+                    _tensor(d["raw_outputscale"], device),
+                    _tensor(d["raw_noise"], device), _mean_params(d, device))
 
 
 def gp_config_from_dict(d: dict) -> GPConfig:
     """GPConfig from a dict of sober_tpu GPConfig fields; a field the port
-    lacks must be None (e.g. mean_priors)."""
+    lacks must be None."""
     extra = {k: v for k, v in d.items() if k not in _CONFIG_FIELDS}
     if any(v is not None for v in extra.values()):
         raise NotImplementedError(f"config fields not ported: {sorted(extra)}")
@@ -80,20 +86,19 @@ def gp_state_to_numpy(state) -> dict:
     arr = lambda a: None if a is None else np.asarray(a)
     return {"config": state.config._asdict(), "kernel_name": state.kernel.name,
             "kernel_params": {k: arr(v) for k, v in state.kernel.params.items()},
-            "mean_params": state.mean_params,
+            "mean_params": {k: arr(v) for k, v in state.mean_params.items()},
             **{k: arr(getattr(state, k)) for k in _STATE_ARRAYS}}
 
 
 def gp_state_from_numpy(d: dict, device=None) -> GPState:
     """GPState from a dict of the fields of sober_tpu's GPState: config
     (dict), kernel_name, kernel_params (dict), noise, x, y, y_mean, y_std,
-    chol, alpha, mask (or None), linv (or None)[, mean_params]."""
-    _no_mean_params(d)
+    chol, alpha, mask (or None), linv (or None)[, mean_params (a dict)]."""
     kernel = Kernel(d["kernel_name"],
                     {k: _tensor(v, device) for k, v in d["kernel_params"].items()})
     arrays = {k: _tensor(d.get(k), device) for k in _STATE_ARRAYS}
     return GPState(config=gp_config_from_dict(d["config"]), kernel=kernel,
-                   **arrays)
+                   mean_params=_mean_params(d, device), **arrays)
 
 
 def dataset_prior_from_numpy(features, targets, available=None,
@@ -258,3 +263,41 @@ def scale_mmlt_from_numpy(d: dict, device=None) -> ScaleMmltGP:
         m.model.config, d["kernel_name"], d["optimiser"], 0.0)
     m.beta, m.y_log = _tensor(d["beta"], device), _tensor(d["y_log"], device)
     return m
+
+
+def truncated_gaussian_to_numpy(prior, gibbs_threshold: float = 0.05) -> dict:
+    """The dict `truncated_gaussian_from_numpy` reads, from a sober_tpu
+    TruncatedGaussian (which keeps no threshold: pass the one it was built
+    with) and the regime it samples in."""
+    return {"mu": np.array(prior.mu), "cov": np.array(prior.cov),
+            "bounds": np.array(prior.bounds), "n_rounds": int(prior.n_rounds),
+            "gibbs_threshold": float(gibbs_threshold),
+            "use_gibbs": bool(prior._use_gibbs)}
+
+
+def truncated_gaussian_from_numpy(d: dict, device=None) -> TruncatedGaussian:
+    """The port's TruncatedGaussian with the same mu, cov, bounds and rounds,
+    pinned to the carried regime (its own Genz constant could land an ulp
+    across the threshold)."""
+    device = resolve_device(device)
+    prior = TruncatedGaussian(d["mu"], d["cov"], d["bounds"], n_rounds=d["n_rounds"],
+                              gibbs_threshold=d["gibbs_threshold"], device=device)
+    prior._use_gibbs = bool(d.get("use_gibbs", prior._use_gibbs))
+    return prior
+
+
+def ecm_to_numpy(sim) -> dict:
+    """The dict `ecm_from_numpy` reads, from a sober_tpu CanonicalECMTwoRCs."""
+    return {"theta_true": np.array(sim.theta_true), "sigma": float(sim.noise_sig),
+            "omega": np.array(sim.omega), "reZ": np.array(sim.reZ),
+            "imZ": np.array(sim.imZ)}
+
+
+def ecm_from_numpy(d: dict, device=None) -> CanonicalECMTwoRCs:
+    """The port's ECM simulator on the same parameters and frequencies,
+    with the carried observed spectrum in place of its own noisy draw."""
+    device = resolve_device(device)
+    sim = CanonicalECMTwoRCs(*np.asarray(d["theta_true"], np.float64).tolist(),
+                             sigma=d["sigma"], omega=d["omega"], device=device)
+    sim.reZ, sim.imZ = _tensor(d["reZ"], device), _tensor(d["imZ"], device)
+    return sim

@@ -428,3 +428,63 @@ def test_kmeans_is_reproducible_on_card(cuda):
     a = kmeans(x.to(cuda), 256)[1]
     b = kmeans(x.to(cuda), 256)[1]
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mvn_cdf_and_gradients_on_card(cuda):
+    """The Genz CDF and its closed-form gradients on the card against the
+    CPU at d = 5 (the same Sobol nodes on both): the values 1e-5 relative,
+    the gradients in value and covariance 1e-4 of their largest entry."""
+    from sober_tpu_torch.priors import multivariate_normal_cdf
+
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(5, 5))
+    cov = (a @ a.T + 5 * np.eye(5)).astype(np.float32)
+    val = rng.normal(size=(3, 5)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        v = torch.tensor(val, device=dev, requires_grad=True)
+        c = torch.tensor(cov, device=dev, requires_grad=True)
+        p = multivariate_normal_cdf(v, torch.zeros(5, device=dev), c)
+        p.sum().backward()
+        out[str(dev)] = [t.detach().cpu() for t in (p, v.grad, c.grad)]
+    (p_c, gv_c, gc_c), (p_g, gv_g, gc_g) = out["cpu"], out["cuda"]
+    assert float(((p_g - p_c).abs() / p_c).max()) < 1e-5
+    for g, c in ((gv_g, gv_c), (gc_g, gc_c)):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+@pytest.mark.cuda
+def test_truncated_gaussian_next_batch_on_card(cuda):
+    """Sober on the ECM task's truncated-Gaussian prior on the card: the
+    prior's constant and density as on the CPU (1e-5 relative), batches
+    inside the box with legal weights, and both regimes' draws inside their
+    boxes."""
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.priors import TruncatedGaussian
+    from sober_tpu_torch.tasks import setup_ecm_two
+
+    prior, sim = setup_ecm_two(device=cuda)
+    prior_c, sim_c = setup_ecm_two(device="cpu")
+    assert abs(float(prior.constant) - float(prior_c.constant)) <= 1e-5 * float(prior_c.constant)
+    # the observations' noise is drawn on the CPU on both: equal to 1e-5 of
+    # the spectrum's scale (a noise drawn apart differs by its sd, 0.26)
+    for got, want in ((sim.reZ, sim_c.reZ), (sim.imZ, sim_c.imZ)):
+        assert float((got.cpu() - want).abs().max() / want.abs().max()) < 1e-5
+    theta = torch.as_tensor(np.random.default_rng(1).uniform(1.0, 2.0, (64, 5)),
+                            dtype=torch.float32)
+    want = prior_c.pdf(theta)
+    assert float(((prior.pdf(theta.to(cuda)).cpu() - want).abs() / want.clamp_min(1e-30)).max()) < 1e-5
+    x = prior.sample(torch.Generator(device=cuda).manual_seed(0), 40)
+    d, _ = sim(x)
+    sober = Sober(prior, fit_gp_padded(x, d, bucket=64), seed=3)
+    lo, hi = prior.bounds
+    w, xb = sober.next_batch(2048, 64, 8, return_weights=True)
+    assert xb.shape == (8, 5) and bool(((xb >= lo) & (xb <= hi)).all())
+    assert bool((w >= 0).all()) and abs(float(w.sum()) - 1.0) < 1e-4
+    unit = [[0.0, 0.0], [1.0, 1.0]]
+    for mu, cov, gibbs in (([0.5, 0.5], 0.3, False), ([3.0, 3.0], 0.25, True)):
+        tg = TruncatedGaussian(mu, cov * np.eye(2), unit, device=cuda)
+        assert tg._use_gibbs == gibbs
+        s = tg.sample(torch.Generator(device=cuda).manual_seed(1), 4096)
+        assert bool(torch.isfinite(s).all()) and bool(((s >= 0) & (s <= 1)).all())

@@ -270,13 +270,15 @@ def test_next_batch_matches_jax(carried):
 
 
 def test_sober_rejects_what_is_not_ported(carried):
-    """What is still to port raises and names its ROADMAP.md item: the
-    TruncatedGaussian proposal (item 13); a domain label that no package
-    has raises ValueError. step_fbgp (item 12) is ported: on a dataset
+    """A domain label that no package has raises ValueError, and a
+    continuous prior that is not one of the port's proposals (the JAX
+    package's TruncatedGaussian) TypeError; the port's TruncatedGaussian
+    (item 13) is taken. step_fbgp (item 12) is ported: on a dataset
     domain it refits an FBGP on the observed rows and returns a legal
     screening batch."""
     from sober_tpu.priors.continuous import TruncatedGaussian
     from sober_tpu_torch.gp.fbgp import FullyBayesianGP, RBFHyperPrior
+    from sober_tpu_torch.priors import TruncatedGaussian as PortTruncatedGaussian
 
     feats, targets, available, _, ts = carried
     prior = dataset_prior_from_numpy(feats, targets, available, device="cpu")
@@ -296,8 +298,11 @@ def test_sober_rejects_what_is_not_ported(carried):
         Sober(Ordinal(), ts)
     tgauss = TruncatedGaussian(jnp.zeros(2), jnp.eye(2),
                                jnp.asarray([[-1.0, -1.0], [1.0, 1.0]]))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="TruncatedGaussian"):
         Sober(tgauss, ts)
+    port_tgauss = PortTruncatedGaussian(np.zeros(2), np.eye(2),
+                                        [[-1.0, -1.0], [1.0, 1.0]], device="cpu")
+    assert Sober(port_tgauss, ts).label == "continuous"
     with pytest.raises(ValueError):
         sober.sampling_datasets(N_NYS, N_NYS)
 

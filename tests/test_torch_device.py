@@ -7,12 +7,13 @@ import pytest
 import torch
 
 from sober_tpu_torch import Sober, config, interop
+from sober_tpu_torch.apps import bolfi, wrapper
 from sober_tpu_torch.core.sampler import RecombinationSampler
 from sober_tpu_torch.gp import exact, fbgp, warped
 from sober_tpu_torch.ops import kernels
-from sober_tpu_torch.priors import continuous, dataset, discrete, wkde
+from sober_tpu_torch.priors import continuous, dataset, discrete, tmvn, wkde
 from sober_tpu_torch.tasks import discrete as discrete_tasks
-from sober_tpu_torch.tasks import synthetic
+from sober_tpu_torch.tasks import ecm, synthetic
 from sober_tpu_torch.tasks.drug import setup_malaria, setup_solvent
 from sober_tpu_torch.utils import prng, sobol
 
@@ -44,8 +45,24 @@ def _tensors(obj):
         return _tensors(obj.keys)
     if isinstance(obj, kernels.Kernel):
         return list(obj.params.values())
+    if isinstance(obj, exact.GPState):
+        return [obj.x, obj.y, obj.alpha, obj.chol, obj.linv, *_tensors(obj.kernel),
+                *obj.mean_params.values()]
     if isinstance(obj, tuple):
         return [t for x in obj for t in _tensors(x)]
+    if isinstance(obj, dict):
+        return [t for x in obj.values() for t in _tensors(x)]
+    if isinstance(obj, continuous.TruncatedGaussian):
+        return [obj.mu, obj.cov, obj.bounds, obj.chol, obj.constant, *_tensors(obj.tmvn)]
+    if isinstance(obj, tmvn.TruncatedMVN):
+        tilt = getattr(obj, "_tilt", ())
+        return [obj.mu, obj.cov, obj.lb, obj.ub, obj.prec, obj.cond_sd,
+                *(t for t in tilt if isinstance(t, torch.Tensor))]
+    if isinstance(obj, ecm.CanonicalECMTwoRCs):
+        return [obj.omega, obj.theta_true, obj.reZ, obj.imZ, obj.mu, obj.sigma]
+    if isinstance(obj, wrapper.SoberWrapper):
+        return [obj.bounds, obj.diagonalization, obj.X_all, obj.mean,
+                *_tensors(obj.prior), *_tensors(obj.keys)]
     if isinstance(obj, continuous.Uniform):
         return [obj.bounds, *obj._sobol[:2]]
     if isinstance(obj, continuous.Gaussian):
@@ -123,6 +140,23 @@ CONSTRUCTORS = {
     "continuous_prior_from_numpy": (interop, lambda: interop.continuous_prior_from_numpy(
         {"family": "gaussian", "mu": np.zeros(2), "cov": np.eye(2)})),
     "setup_shekel": (continuous, lambda: synthetic.setup_shekel()),
+    "TruncatedGaussian": (continuous, lambda: continuous.TruncatedGaussian(
+        [0.0, 0.0], np.eye(2), [[-1.0, -1.0], [1.0, 1.0]])),
+    "TruncatedMVN": (tmvn, lambda: tmvn.TruncatedMVN(
+        np.zeros(2), np.eye(2), np.array([[2.0, 2.0], [4.0, 4.0]]), method="tilting")),
+    "truncated_gaussian_from_numpy": (interop, lambda: interop.truncated_gaussian_from_numpy(
+        {"mu": np.zeros(2), "cov": np.eye(2), "bounds": np.array([[-1.0, -1.0], [1.0, 1.0]]),
+         "n_rounds": 10, "gibbs_threshold": 0.05})),
+    "setup_ecm_two": (ecm, lambda: ecm.setup_ecm_two()),
+    "ecm_from_numpy": (interop, lambda: interop.ecm_from_numpy(
+        {"theta_true": np.zeros(5), "sigma": 1.0, "omega": np.logspace(1, 3, 4),
+         "reZ": np.zeros(4), "imZ": np.zeros(4)})),
+    "make_bolfi_model": (fbgp, lambda: bolfi.make_bolfi_model(
+        *_loglik(8), [[-1.0], [1.0]], fit_iters=4)),
+    "SoberWrapper": (wrapper, lambda: wrapper.SoberWrapper(
+        model=np.linalg.norm, data=np.zeros(1), bounds=[[0.0, 0.0], [1.0, 1.0]],
+        prior="TruncatedGaussian", model_initial_samples=4, standalone=False,
+        parallelization=False)),
     "Sober (continuous)": (continuous, lambda: Sober(
         continuous.Uniform([[0.0, 0.0], [1.0, 1.0]]), _cpu_state())),
     "BinaryPrior": (discrete, lambda: discrete.BinaryPrior(3)),

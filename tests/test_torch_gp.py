@@ -54,11 +54,11 @@ def _jax_params(raw):
 
 def _torch_leaves(raw):
     return tx.GPParams(*(torch.tensor(raw[k], requires_grad=True)
-                         for k in tx.GPParams._fields))
+                         for k in tx.GPParams._fields[:3]))
 
 
 def _params_to_numpy(p):
-    return {k: np.asarray(getattr(p, k)) for k in tx.GPParams._fields}
+    return {k: np.asarray(getattr(p, k)) for k in tx.GPParams._fields[:3]}
 
 
 @pytest.mark.parametrize("masked,ard,priors", [(False, False, False),
@@ -85,7 +85,7 @@ def test_neg_mll_and_grad_match_jax(masked, ard, priors):
                         None if mask is None else torch.as_tensor(mask))
     loss_t.backward()
     _close(float(loss_t.detach()), float(loss_j), 1e-4)
-    for name, p in zip(tx.GPParams._fields, params):
+    for name, p in zip(tx.GPParams._fields[:3], params):
         _close(p.grad.numpy(), np.asarray(getattr(grad_j, name)), 1e-4)
 
 
@@ -134,12 +134,12 @@ def test_rescued_cholesky_gradients_finite_on_indefinite_gram():
     var = ((yp - mu) ** 2 * mask).sum() / (mask.sum() - 1)
     ys = (yp - mu) / torch.sqrt(var) * mask
     cfg = tx.GPConfig()
-    params = tx.GPParams(*(p.requires_grad_(True)
-                           for p in tx.init_params(cfg, x.shape[1], device="cpu")))
+    params = tx.map_params(lambda p: p.requires_grad_(True),
+                           tx.init_params(cfg, x.shape[1], device="cpu"))
     loss = tx.neg_mll(params, xp, ys, cfg, mask)
     loss.backward()
     assert np.isfinite(float(loss))
-    for p in params:
+    for p in tx.param_tensors(params):
         assert torch.isfinite(p.grad).all()
     assert float(params.raw_lengthscale.grad.abs().max()) > 1e-4
 
@@ -263,10 +263,14 @@ def test_interop_round_trip_and_refusals():
     p = gp_params_from_numpy(_params_to_numpy(jx.init_params(js.config, 3)),
                              device="cpu")
     assert p.raw_lengthscale.dtype == torch.float32
+    # a parabolic mean's parameters and priors are carried (no longer refused)
+    mean_params = {"raw_a": np.ones(3, np.float32), "b": np.zeros(3, np.float32),
+                   "c": np.zeros((), np.float32)}
+    priors = ((1.0,) * 3, (1.0,) * 3, (0.0,) * 3, (1.0,) * 3, 0.0, 1.0)
+    tp = gp_state_from_numpy({**d, "mean_params": mean_params,
+                              "config": {**d["config"], "mean": "parabolic",
+                                         "mean_priors": priors}}, device="cpu")
+    assert tp.config.mean_priors == priors and sorted(tp.mean_params) == ["b", "c", "raw_a"]
     with pytest.raises(NotImplementedError):
-        gp_state_from_numpy({**d, "mean_params": {"c": np.zeros(())}},
-                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        gp_state_from_numpy({**d, "config": {**d["config"],
-                                             "mean_priors": (1.0,)}},
+        gp_state_from_numpy({**d, "config": {**d["config"], "mean_kind": "linear"}},
                             device="cpu")

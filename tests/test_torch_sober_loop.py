@@ -401,7 +401,8 @@ def test_step_with_warm_start(carried):
     sober = Sober(Uniform(BOX, device="cpu"), ts, seed=23)
     p0 = sober._warm_start_params(tx.GPConfig(), 2)
     want = tx.raw_params_from_state(ts)
-    assert all(torch.equal(a, b) for a, b in zip(p0, want))
+    assert all(torch.equal(a, b) for a, b in zip(tx.param_tensors(p0),
+                                                 tx.param_tensors(want)))
     assert sober._warm_start_params(tx.GPConfig(ard=True), 2) is None
     xb = sober.step(x0, y0, 1024, 32, BATCH, warm_start=True)
     assert xb.shape == (BATCH, 2) and bool(torch.isfinite(xb).all())

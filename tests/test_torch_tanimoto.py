@@ -232,7 +232,7 @@ def test_fit_tanimoto_gp_matches_jax():
     y_pad = np.concatenate([y_std, np.zeros(48, np.float32)])
     loss_j = float(tx.neg_mll(
         tx.GPParams(*(torch.as_tensor(np.asarray(getattr(
-            jx.raw_params_from_state(js), f))) for f in tx.GPParams._fields)),
+            jx.raw_params_from_state(js), f))) for f in tx.GPParams._fields[:3])),
         ts.x, torch.as_tensor(y_pad), ts.config, torch.as_tensor(mask)))
     raw_t = tx.GPParams(
         torch.zeros(()),
@@ -314,7 +314,7 @@ def test_priors_skip_lengthscale_for_tanimoto():
     want = float(jx.neg_mll(jx.GPParams(**{k: jnp.asarray(v) for k, v in raw.items()}),
                             jnp.asarray(x), jnp.asarray(y), jcfg))
     got = float(tx.neg_mll(tx.GPParams(*(torch.as_tensor(raw[k])
-                                         for k in tx.GPParams._fields)),
+                                         for k in tx.GPParams._fields[:3])),
                            torch.as_tensor(x), torch.as_tensor(y), tcfg))
     assert abs(got - want) <= 1e-5 * abs(want)
 
