@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Nine paths. The first is one exact-GP batch-BO iteration on a continuous
+Eleven paths. The first is one exact-GP batch-BO iteration on a continuous
 domain: a warm-started MAP refit of the GP hypers, the posterior cache, the
 incumbent eta, and the fused acquisition (pi weights, Nystrom features, the
 halving tree of Caratheodory eliminations). The second is one
@@ -24,7 +24,12 @@ is BASQ's evidence of a Gaussian likelihood at tutorial 05's quadrature
 sizes. The ninth is simulation-based inference: tutorial 05 on the ECM
 battery task (a TruncatedGaussian prior, next_batch(4096, 256, 50), BASQ),
 the README's guided SoberWrapper interface and tests/test_apps.py's
-expectation propagation. The script
+expectation propagation. The tenth is the batch-BO baselines of tutorials
+07 and 08 (Thompson sampling, pathwise TS, DPP-TS, GIBBON, hallucination,
+local penalisation, TurBO, SOBER-TS beside SOBER) on Branin. The eleventh
+is the inverse model on the ECM spectrum (an ICM multitask GP trained on
+SOBER-chosen simulations), with the reference-name surface (compat). The
+script
 
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
@@ -83,7 +88,19 @@ expectation propagation. The script
  17. runs the identity-simulator EP (phase ep_flow: within 0.15 of theta*
      and closer than the prior) and the Gibbs and tilting samplers at
      tests/test_mvn.py's tail boxes (phase tmvn_tail: its tolerances);
- 18. holds the RBF and CAR kernels at every shape phases 9-17 launched;
+ 18. runs tutorial 08's nine methods at its config (phase batch_bo_zoo: 3
+     iterations of batch 20, each batch finite and inside the box, TS's
+     rows distinct; bests, seconds and launches per method, no gate) and
+     tutorial 07's four (phase thompson_compare: 4 iterations of batch 25),
+     after the pathwise sampler, the joint samples and the DPP log-det on
+     the card held to the CPU against float64;
+ 19. runs InverseModel on the ECM spectrum (phase inverse_ecm: 100 draws,
+     3 SOBER batches of 100, the ICM refit at n = 100 to 400, evaluate and
+     256 draws at the observed spectrum; every task covariance factors) and
+     holds fit_icm_gp on the card to the CPU at n = 100; checks compat's
+     TensorManager, the two CAR entry points and a Tracer span on the card
+     (phase compat_surface);
+ 20. holds the RBF and CAR kernels at every shape phases 9-19 launched;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -187,6 +204,21 @@ EP_RUN = dict(ep_iterations=1, sober_iterations=2, model_samples_per_iteration=1
 # (identity on [3, 4]^2) boxes: draws, and the Gibbs and tilting mean and sd
 # tolerances in sd units
 TMVN_DRAWS, TMVN_TOL = 20_000, {"gibbs": (0.08, 0.10), "tilting": (0.04, 0.05)}
+# tutorials/08_benchmark_batch_bo.py:18-56 on Branin (truth 10.6043): initial
+# points, BATCH, POOL, ITERS; DPP-TS's and GIBBON's pools, DPP-TS's MCMC
+# steps, SOBER's n_nys, SOBER-TS's n_cand and n_nys
+ZOO = dict(n_init=10, batch=20, pool=4096, iters=3, small_pool=2048, n_mcmc=20,
+           sober_nys=200, ts_cand=1024, ts_nys=128)
+BRANIN_TRUTH = 10.6043
+# tutorials/07_compare_thompson_sampling.py:19-36: iterations, batch;
+# SOBER's next_batch(8192, 256), TS's pool, DTS's pool (4,096 features),
+# SOBER-TS's 8192 / 1024 / 128; the sampling holds' query counts
+THOMPSON = dict(n_iter=4, batch=25, sober=(8192, 256), ts_pool=4096, dts_pool=8192,
+                ts_super=8192, ts_cand=1024, ts_nys=128, hold_paths=8192, hold_joint=64)
+# InverseModel on the ECM spectrum at the wrapper phase's sizes:
+# model_initial_samples, batches, model samples a batch, integration nodes,
+# posterior draws at the observed spectrum
+INVERSE = (100, 3, 100, 100, 256)
 # where the TPU kernels live that the CUDA kernels replace (the bit pack
 # computes the row sums |x| and |y| of the Pallas Tanimoto kernel)
 REPLACES = {"rbf_gram": "sober_tpu/ops/pallas_kernels.py:131",
@@ -345,7 +377,7 @@ def time_rbf(config, d, n, m, launches, rng, dev) -> tuple[dict, dict]:
 
 def car_problem(m, q, dev):
     """A CAR on m points with m - q moments and 7 padding rows, from numpy
-    seed m: (x, mu, mask, big_n, n_take, active0)."""
+    seed m: (x, mu, mask, big_n, n_take, active0), big_n of q columns."""
     from sober_tpu_torch.core.rchq import null_basis
 
     rng = np.random.default_rng(m)
@@ -356,7 +388,7 @@ def car_problem(m, q, dev):
     mu[-7:] = 0.0
     mu = torch.as_tensor(mu / mu.sum(), dtype=torch.float32, device=dev)
     mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
-    return (x, mu, mask) + null_basis(x, mu, m - q, mask)
+    return (x, mu, mask) + null_basis(x, mu, q, mask)
 
 
 def hold_car(m, x, mu, mask, big_n, n_take, active0) -> dict:
@@ -2021,8 +2053,7 @@ def phase_sbi_ecm(counts: dict) -> tuple[dict, dict]:
          posterior_mean=post.mean(0).tolist(), map=map_est.tolist(), truth=list(ECM_TRUTH),
          map_distance=float(torch.linalg.norm(map_est - truth)),
          best_discrepancy=float(d.max()),
-         launches_by_shape={" ".join(map(str, k)): v for k, v in shapes.items()},
-         basq_launches_by_shape={" ".join(map(str, k)): v for k, v in quad_shapes.items()})
+         launches_by_shape=by_shape(shapes), basq_launches_by_shape=by_shape(quad_shapes))
     return shapes, quad_shapes
 
 
@@ -2202,6 +2233,394 @@ def phase_tmvn_tail() -> None:
     emit(phase="tmvn_tail", draws=TMVN_DRAWS, tolerances=TMVN_TOL, **out)
 
 
+def bo_loop(acquire, iters: int, batch: int, label: str, distinct: bool = False) -> dict:
+    """A batch-BO loop on the card as tutorials 07 and 08 run it: 10 Sobol
+    points of the quick-start Branin, then per iteration fit_gp_padded and
+    acquire(gen, model, prior, turbo_state, iteration), each batch finite,
+    of its shape and inside the box (with `distinct`, its rows distinct),
+    TurBO's state updated with the batch's values. Returns the best value,
+    the fit and acquisition seconds (host clock, synced) per iteration."""
+    from sober_tpu_torch.benchmarks import TurboState, update_turbo_state
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.tasks.synthetic import setup_branin
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    dev = torch.device("cuda")
+    keys = KeyRing(0, device=dev)
+    prior, f = setup_branin(device=dev)
+    lo, hi = prior.bounds
+    x = prior.sample(keys.next(), ZOO["n_init"])
+    y = f(x)
+    turbo_state = TurboState(dim=2, batch_size=batch)
+    fit_s, acq_s = [], []
+    for it in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fit_gp_padded(x, y)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        xb = acquire(keys.next(), model, prior, turbo_state, it)
+        torch.cuda.synchronize()
+        fit_s.append(t1 - t0)
+        acq_s.append(time.perf_counter() - t1)
+        require(tuple(xb.shape) == (batch, 2) and xb.device.type == "cuda"
+                and bool(torch.isfinite(xb).all()) and bool(((xb >= lo) & (xb <= hi)).all()),
+                f"{label} {it}: batch {tuple(xb.shape)} on {xb.device}, finite, in the box")
+        if distinct:
+            require(len(torch.unique(xb, dim=0)) == batch, f"{label} {it}: rows not distinct")
+        yb = f(xb)
+        x, y = torch.cat([x, xb]), torch.cat([y, yb])
+        turbo_state = update_turbo_state(turbo_state, yb)
+    return {"best": float(y.max()), "fit_s": fit_s, "acquisition_s": acq_s}
+
+
+def zoo_methods() -> dict:
+    """tutorials/08's nine methods at its config (ZOO), as acquire
+    callables for bo_loop, and whether each batch's rows must be distinct."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.benchmarks import (decoupled_thompson_sampling, dpp_ts, gibbon,
+                                            hallucination, local_penalisation, sober_ts,
+                                            thompson_sampling, turbo)
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+
+    z = ZOO
+    return {
+        "SOBER": (lambda g, m, p, s, it: Sober(p, m).next_batch(z["pool"], z["sober_nys"],
+                                                                 z["batch"]), False),
+        "TS": (lambda g, m, p, s, it: thompson_sampling(g, m, p, z["pool"], z["batch"]), True),
+        "decoupled TS": (lambda g, m, p, s, it: decoupled_thompson_sampling(
+            g, m, p, z["pool"], z["batch"]), True),
+        "DPP-TS": (lambda g, m, p, s, it: dpp_ts(g, m, p, z["small_pool"], z["batch"],
+                                                 n_mcmc=z["n_mcmc"]), False),
+        "GIBBON": (lambda g, m, p, s, it: gibbon(g, m, p, z["small_pool"], z["batch"]), True),
+        "hallucination": (lambda g, m, p, s, it: hallucination(
+            g, m, lambda xx, yy: fit_gp_padded(xx, yy), p, z["batch"]), False),
+        "local penal.": (lambda g, m, p, s, it: local_penalisation(g, m, p, z["batch"]), False),
+        "TurBO": (lambda g, m, p, s, it: turbo(g, s, m, p, z["batch"]), False),
+        "SOBER-TS": (lambda g, m, p, s, it: sober_ts(g, m, p, z["batch"],
+                                                     n_cand_super=z["pool"],
+                                                     n_cand=z["ts_cand"], n_nys=z["ts_nys"]),
+                     True),
+    }
+
+
+def by_shape(shapes: dict) -> dict:
+    """Launches by shape with string keys, for a JSON line."""
+    return {" ".join(map(str, k)): v for k, v in shapes.items()}
+
+
+def run_methods(methods: dict, iters: int, batch: int, label: str):
+    """bo_loop for each of `methods` (name -> (acquire, distinct)), its RBF
+    and CAR launches counted; emits a line a method. Returns the rows and
+    the launches, in all and by shape."""
+    path, shapes, rows = {}, {}, {}
+    for name, (acquire, distinct) in methods.items():
+        launches, method_shapes = {}, {}
+        with counted(launches, method_shapes):
+            rows[name] = bo_loop(acquire, iters, batch, f"{label} {name}", distinct)
+        rows[name].update(launches=launches, launches_by_shape=by_shape(method_shapes))
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        for k, v in method_shapes.items():
+            shapes[k] = shapes.get(k, 0) + v
+        emit(phase=label + "_method", method=name, **rows[name])
+    return rows, path, shapes
+
+
+def phase_batch_bo_zoo(counts: dict) -> dict:
+    """tutorials/08_benchmark_batch_bo.py on the card at its config (ZOO):
+    each of the nine methods runs 3 iterations of fit_gp_padded and a batch
+    of 20 on Branin from 10 Sobol points, each batch checked (bo_loop; TS,
+    decoupled TS, GIBBON and SOBER-TS rows distinct). Per method the best
+    value (truth 10.6043, no gate), the seconds an iteration and the RBF
+    and CAR launches by shape. Returns the launches by shape."""
+    zero_counts()
+    t0 = time.perf_counter()
+    rows, path, shapes = run_methods(zoo_methods(), ZOO["iters"], ZOO["batch"], "batch_bo_zoo")
+    add_counts(counts, path, "batch_bo_zoo")
+    emit(phase="batch_bo_zoo", config=ZOO, truth=BRANIN_TRUTH,
+         best={k: r["best"] for k, r in rows.items()},
+         acquisition_s_per_iteration={k: statistics.mean(r["acquisition_s"])
+                                      for k, r in rows.items()},
+         seconds=time.perf_counter() - t0, launches_on_path=path)
+    return shapes
+
+
+def phase_small_sampling_vs_cpu() -> dict:
+    """The pathwise sampler, the joint samples and the DPP log-det on the
+    card against the port on the CPU, from one state (tutorial 07's first:
+    fit_gp_padded on 10 Sobol points of Branin, fitted on the CPU and
+    copied) and the same draws (a 4,096-feature basis, 25 paths' weights and
+    noise normals; 25 x 64 unit normals). Each is held to the same math in
+    float64 on the CPU from the same float32 inputs: the card within 1e-5
+    of the value's scale, or within 4 times the CPU's own float32 distance
+    from float64 where that is larger (the state's K + s^2 I has a noise
+    near 1e-5, and its solve loses digits on either device)."""
+    from sober_tpu_torch.benchmarks.batch_bo import _dpp_logdet
+    from sober_tpu_torch.gp import sampling
+    from sober_tpu_torch.gp.exact import fit_gp_padded, predict, predictive_covariance
+    from sober_tpu_torch.tasks.synthetic import setup_branin
+    from sober_tpu_torch.utils.linalg import jitter_cholesky
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    dev = torch.device("cuda")
+    prior, f = setup_branin(device="cpu")
+    x = prior.sample(KeyRing(0, device="cpu").next(), ZOO["n_init"])
+    model = fit_gp_padded(x, f(x))
+    on = {"cpu": model, "cuda": state_to(model, dev), "f64": state_to(model, torch.float64)}
+    cast = {"cpu": lambda t: t, "cuda": lambda t: t.to(dev), "f64": lambda t: t.double()}
+    gen = torch.Generator().manual_seed(0)
+    basis = sampling.make_rff_basis(gen, model, 4096)
+    w, eps = sampling.path_draws(gen, model, THOMPSON["batch"], 4096)
+    xq = prior.sample(None, THOMPSON["hold_paths"])
+    z = torch.randn((THOMPSON["batch"], THOMPSON["hold_joint"]), generator=gen)
+    xj = xq[:THOMPSON["hold_joint"]]
+
+    def joint(key):
+        st, c = on[key], cast[key]
+        if key != "f64":
+            return sampling.joint_samples_from_normals(st, c(xj), c(z))
+        # float64 with the float32 jitter floor, so the same rung factors
+        chol, _ = jitter_cholesky(predictive_covariance(st, c(xj), c(xj)), floor_rel=1e-6)
+        return predict(st, c(xj), include_noise=False)[0][None] + c(z) @ chol.T
+
+    runs = {
+        "paths": lambda key: sampling.decoupled_paths(
+            on[key], sampling.RFFBasis(*map(cast[key], basis)), cast[key](w),
+            cast[key](eps))(cast[key](xq)),
+        "joint": joint,
+        "dpp_logdet": lambda key: _dpp_logdet(on[key], cast[key](xq[:THOMPSON["batch"]]),
+                                              1.0, "mult")}
+    out = {}
+    for name, run in runs.items():
+        got = {key: run(key).double().cpu() for key in ("cuda", "cpu", "f64")}
+        scale = float(got["f64"].abs().max())
+        err_card = float((got["cuda"] - got["f64"]).abs().max())
+        err_cpu = float((got["cpu"] - got["f64"]).abs().max())
+        tol = max(1e-5 * scale, 4 * err_cpu)
+        require(err_card <= tol, f"sampling vs cpu {name}: card {err_card}, cpu {err_cpu}, "
+                                 f"tol {tol}")
+        out[name] = {"card_vs_float64": err_card, "cpu_vs_float64": err_cpu,
+                     "card_vs_cpu": float((got["cuda"] - got["cpu"]).abs().max()),
+                     "scale": scale, "tol": tol}
+    out["noise"] = float(model.noise)
+    return out
+
+
+def phase_thompson_compare(counts: dict) -> dict:
+    """tutorials/07_compare_thompson_sampling.py on the card at its config
+    (THOMPSON): SOBER next_batch(8192, 256, 25), TS at 4,096, decoupled TS
+    at 8,192 with 4,096 features and SOBER-TS at 8192 / 1024 / 128, each 4
+    iterations of batch 25 on Branin, each batch checked as in
+    phase_batch_bo_zoo; first the samplers on the card against the CPU
+    (phase_small_sampling_vs_cpu). Returns the launches by shape."""
+    from sober_tpu_torch import Sober
+    from sober_tpu_torch.benchmarks import (decoupled_thompson_sampling, sober_ts,
+                                            thompson_sampling)
+
+    t0 = time.perf_counter()
+    small = phase_small_sampling_vs_cpu()
+    t, b = THOMPSON, THOMPSON["batch"]
+    methods = {
+        "sober": (lambda g, m, p, s, it: Sober(p, m, seed=it).next_batch(*t["sober"], b), False),
+        "ts": (lambda g, m, p, s, it: thompson_sampling(g, m, p, t["ts_pool"], b), True),
+        "dts": (lambda g, m, p, s, it: decoupled_thompson_sampling(g, m, p, t["dts_pool"], b),
+                True),
+        "sober_ts": (lambda g, m, p, s, it: sober_ts(g, m, p, b, n_cand_super=t["ts_super"],
+                                                     n_cand=t["ts_cand"], n_nys=t["ts_nys"]),
+                     True)}
+    zero_counts()
+    rows, path, shapes = run_methods(methods, t["n_iter"], b, "thompson_compare")
+    add_counts(counts, path, "thompson_compare")
+    emit(phase="thompson_compare", config=THOMPSON, truth=BRANIN_TRUTH,
+         best={k: r["best"] for k, r in rows.items()}, small_vs_cpu=small,
+         seconds=time.perf_counter() - t0, launches_on_path=path)
+    return shapes
+
+
+def phase_inverse_ecm(counts: dict) -> dict:
+    """InverseModel on the ECM spectrum on the card at the wrapper phase's
+    sizes (INVERSE): 100 Sobol draws of the ECM box, the numpy simulator
+    (`ecm_spectrum`, parallelization off), then
+    optimize_inverse_model_with_SOBER(3 batches of 100, integration nodes
+    100), its convergence stop off (stopping_criterion_variance 0), so the
+    ICM is refit with T = 5 tasks over 200-d observations at n = 100, 200,
+    300 and 400; then evaluate and sample(256) at the observed spectrum.
+    Every per-query (T, T) covariance (at the observed spectrum and at the
+    400 observations) factors by Cholesky, lower <= upper, the draws are
+    finite. fit_icm_gp on the card is held to the CPU at n = 100: the loss
+    and the predictions from the same raw parameters within 1e-4 relative,
+    the fitted loss within 1e-3 relative. Each refit's seconds and the
+    inverse mean's distance from theta* are reported, not gated. Returns
+    the launches by shape."""
+    from sober_tpu_torch.apps import InverseModel
+    from sober_tpu_torch.gp import multitask as mt
+    from sober_tpu_torch.tasks import setup_ecm_two
+
+    n_init, batches, per_batch, nodes, n_draws = INVERSE
+    dev = torch.device("cuda")
+    _, sim = setup_ecm_two(device="cpu")
+    observed = torch.cat([sim.reZ, sim.imZ]).numpy()
+
+    class TimedInverse(InverseModel):
+        def __init__(self, **kw):
+            self.refits = []
+            super().__init__(**kw)
+
+        def optimize_inverse_model(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().optimize_inverse_model()
+            torch.cuda.synchronize()
+            self.refits.append({"n": int(self.X_all.shape[0]),
+                                "seconds": time.perf_counter() - t0,
+                                "inputs": (self.observations_all.cpu(), self.X_all.cpu())})
+
+    zero_counts()
+    path, shapes, t0 = {}, {}, time.perf_counter()
+    with counted(path, shapes):
+        inv = TimedInverse(model=ecm_spectrum, model_initial_samples=n_init,
+                           bounds=[list(ECM_BOUNDS[0]), list(ECM_BOUNDS[1])],
+                           parallelization=False, seed=0, device=dev,
+                           omega=sim.omega.double().numpy(), log_mu=float(sim.mu),
+                           log_sd=float(sim.sigma))
+        t_init = time.perf_counter()
+        inv.optimize_inverse_model_with_SOBER(
+            stopping_criterion_variance=0.0, maximum_number_of_batches=batches,
+            model_samples_per_iteration=per_batch, integration_nodes=nodes, verbose=False)
+        t_sober = time.perf_counter()
+        mean, cov, (lower, upper) = inv.evaluate(observed)
+        draws = inv.sample(observed, n_draws)
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter()
+    st = inv.inverse_model
+    require([r["n"] for r in inv.refits] == [n_init + k * per_batch for k in range(batches + 1)],
+            f"inverse_ecm: refits at {[r['n'] for r in inv.refits]}")
+    require(isinstance(st, mt.ICMState) and st.n_tasks == 5 and st.x.shape[1] == 200
+            and st.x.device.type == "cuda", "inverse_ecm: the ICM's shape or device")
+    covs = torch.cat([cov, mt.task_posterior_cov_icm(st, st.x)])
+    info = torch.linalg.cholesky_ex(covs)[1]
+    require(bool((info == 0).all()), f"inverse_ecm: {int((info != 0).sum())} covariances "
+                                     "do not factor")
+    require(bool((lower <= upper).all()) and tuple(draws.shape) == (n_draws, 1, 5)
+            and bool(torch.isfinite(draws).all()), "inverse_ecm: bounds or draws")
+    add_counts(counts, path, "inverse_ecm")
+    truth = torch.tensor(ECM_TRUTH, device=dev)
+    emit(phase="inverse_ecm", config=INVERSE, tasks=st.n_tasks, observation_dim=st.x.shape[1],
+         refit_s={r["n"]: r["seconds"] for r in inv.refits}, init_s=t_init - t0,
+         sober_s=t_sober - t_init, evaluate_and_sample_s=t_eval - t_sober,
+         mean=mean[0].tolist(), lower=lower[0].tolist(), upper=upper[0].tolist(),
+         truth=list(ECM_TRUTH), mean_distance=float(torch.linalg.norm(mean[0] - truth)),
+         draws_mean=draws.mean((0, 1)).tolist(), covariances_factored=int(covs.shape[0]),
+         task_correlation=st.task_correlation.tolist(), lengthscale=float(st.lengthscale),
+         noise=float(st.noise), icm_vs_cpu=icm_vs_cpu(*inv.refits[0]["inputs"]),
+         seconds=time.perf_counter() - t0, launches_on_path=path,
+         launches_by_shape=by_shape(shapes))
+    return shapes
+
+
+def icm_vs_cpu(x, y) -> dict:
+    """fit_icm_gp on the card against the CPU on the same (n, 200) inputs
+    and (n, 5) targets: the loss (_icm_neg_mll) and the predictions
+    (predict_icm, task_posterior_cov_icm at the first 32 inputs) from the
+    same raw parameters within 1e-4 relative; then each device's fit, the
+    fitted losses within 1e-3 relative."""
+    from sober_tpu_torch.gp import multitask as mt
+
+    dev = torch.device("cuda")
+    ys = (y - y.mean(0)) / y.std(0)
+    raw0 = mt._icm_init(x, y.shape[1], y.shape[1], False)
+    raw = {k: v + 0.05 for k, v in raw0.items()}            # off the init's symmetry
+    out = {}
+    for name, params in (("init", raw0), ("moved", raw)):
+        loss = {d: float(mt._icm_neg_mll({k: v.to(d) for k, v in params.items()}, x.to(d),
+                                         ys.to(d), 0)) for d in ("cpu", dev)}
+        st = {d: mt._icm_state({k: v.to(d) for k, v in params.items()}, x.to(d), ys.to(d),
+                               y.mean(0).to(d), y.std(0).to(d), 0) for d in ("cpu", dev)}
+        rel = lambda g, c: float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
+        pred = [rel(g, c) for g, c in zip(mt.predict_icm(st[dev], x[:32].to(dev)),
+                                          mt.predict_icm(st["cpu"], x[:32]))]
+        pred.append(rel(mt.task_posterior_cov_icm(st[dev], x[:32].to(dev)),
+                        mt.task_posterior_cov_icm(st["cpu"], x[:32])))
+        loss_rel = abs(loss[dev] - loss["cpu"]) / abs(loss["cpu"])
+        require(loss_rel <= 1e-4 and max(pred) <= 1e-4,
+                f"icm vs cpu ({name}): loss {loss_rel}, predictions {pred}")
+        out[name] = {"loss_rel": loss_rel, "mean_rel": pred[0], "var_rel": pred[1],
+                     "cov_rel": pred[2]}
+
+    def fitted(d):
+        st = mt.fit_icm_gp(x.to(d), y.to(d))
+        dd = st.lx[:, None] * st.lb[None] + st.noise
+        return 0.5 * float(torch.sum(st.yt ** 2 / dd) + torch.sum(torch.log(dd))
+                           + st.yt.numel() * np.log(2 * np.pi))
+
+    card, cpu = fitted(dev), fitted("cpu")
+    require(abs(card - cpu) <= 1e-3 * abs(cpu), f"icm vs cpu: fitted loss {card} vs {cpu}")
+    out["fitted_loss"] = {"card": card, "cpu": cpu, "n": int(x.shape[0])}
+    return out
+
+
+def phase_compat_surface(counts: dict) -> None:
+    """The reference-name surface on the card: TensorManager().is_cuda();
+    Tchernychova_Lyons_CAR on 200 weighted points in 5-d (at most 6 left,
+    weights >= 0 summing to 1 within 1e-4, moments within 1e-3) and
+    Mod_Tchernychova_Lyons on 4,096 points with an RBF Gram's 31 Nystrom
+    test functions (at most 32 left, moments within 5e-3), both CAR on the
+    card; a Tracer's blocking span around one next_batch measures at least
+    the CUDA events' time around it."""
+    from sober_tpu_torch import Sober, compat
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.ops.kernels import make_kernel
+    from sober_tpu_torch.tasks.synthetic import setup_branin
+    from sober_tpu_torch.utils.timing import Tracer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    tm = compat.TensorManager(seed=0)
+    require(tm.is_cuda() and tm.device.type == "cuda", "compat: is_cuda on the card")
+    zero_counts()
+    path, shapes, t0 = {}, {}, time.perf_counter()
+    with counted(path, shapes):
+        x = tm.tensor(rng.normal(size=(200, 5)))
+        mu = tm.tensor(rng.uniform(0.1, 1, 200))
+        mu = mu / mu.sum()
+        w = compat.Tchernychova_Lyons_CAR(x, mu)
+        car_mom = float((w @ x - mu @ x).abs().max())
+        require(w.device.type == "cuda" and bool((w >= 0).all())
+                and int((w > 1e-10).sum()) <= 6 and abs(float(w.sum()) - 1) < 1e-4
+                and car_mom < 1e-3, f"compat: Tchernychova_Lyons_CAR moments {car_mom}")
+        kern = make_kernel("rbf", lengthscale=0.5)
+        pool = tm.rand(2, 4096)
+        pt = pool[:256]
+        _, u = compat.ker_svd_sparsify(pt, 31, kern.gram)
+        weights = tm.tensor(rng.uniform(0.1, 1, 4096))
+        weights = weights / weights.sum()
+        w2, idx = compat.Mod_Tchernychova_Lyons(pool, u, pt, kern.gram, tm=tm, mu=weights)
+        phi = u @ kern.gram(pt, pool)
+        mod_mom = float((phi[:, idx] @ w2 - phi @ weights).abs().max())
+        require(len(w2) <= 32 and bool((w2 > 0).all()) and abs(float(w2.sum()) - 1) < 1e-3
+                and mod_mom < 5e-3, f"compat: Mod_Tchernychova_Lyons moments {mod_mom}")
+        prior, f = setup_branin(device=dev)
+        xo = prior.sample(None, 10)
+        sober = Sober(prior, fit_gp_padded(xo, f(xo)))
+        sober.next_batch(4096, 200, 20)                      # warm-up
+        tracer = Tracer()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with tracer.span("recombination", block=True):
+            start.record()
+            sober.next_batch(4096, 200, 20)
+            end.record()
+        span_ms = 1e3 * tracer.records["recombination"][0]
+        event_ms = start.elapsed_time(end)
+    require(span_ms >= event_ms, f"compat: span {span_ms} ms under the events' {event_ms} ms")
+    add_counts(counts, path, "compat_surface")
+    emit(phase="compat_surface", is_cuda=True, car_moment_err=car_mom,
+         car_support=int((w > 1e-10).sum()), mod_moment_err=mod_mom, mod_support=len(w2),
+         span_ms=span_ms, event_ms=event_ms, seconds=time.perf_counter() - t0,
+         launches_on_path=path, launches_by_shape=by_shape(shapes))
+
+
 def main() -> None:
     smi, sm_clock = phase_device()
     phase_build()
@@ -2234,6 +2653,11 @@ def main() -> None:
     phase_sober_wrapper(counts)
     phase_ep_flow(counts)
     phase_tmvn_tail()
+    phase_rbf_busiest(summary, phase_batch_bo_zoo(counts), "batch_bo_zoo", ZOO["iters"], top=3)
+    phase_rbf_busiest(summary, phase_thompson_compare(counts), "thompson_compare",
+                      THOMPSON["n_iter"], top=3)
+    phase_rbf_busiest(summary, phase_inverse_ecm(counts), "inverse_ecm", top=3)
+    phase_compat_surface(counts)
     phase_path_shapes()
     kernels = []
     for name in ("rbf_gram", "car_eliminate", "tanimoto_gram", "pack_bits"):
@@ -2255,6 +2679,8 @@ def main() -> None:
     kernels[0]["fbgp_step_shapes"] = summary["rbf_gram_fbgp_step"]
     kernels[0]["sbi_ecm_shapes"] = summary["rbf_gram_sbi_ecm"]
     kernels[0]["sbi_quadrature_shapes"] = summary["rbf_gram_sbi_quadrature"]
+    for phase in ("batch_bo_zoo", "thompson_compare", "inverse_ecm"):
+        kernels[0][phase + "_shapes"] = summary["rbf_gram_" + phase]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

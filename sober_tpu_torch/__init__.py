@@ -18,10 +18,25 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from .config import Settings, settings  # noqa: E402
+from .config import Settings, set_settings, settings  # noqa: E402
 from .core.sober import Sober  # noqa: E402
 from .gp.tanimoto import fit_tanimoto_gp  # noqa: E402
 from .priors.dataset import DatasetPrior  # noqa: E402
+from .utils.prng import KeyRing  # noqa: E402
 
-__all__ = ["DatasetPrior", "Settings", "Sober", "fit_tanimoto_gp", "settings",
+# the reference's export name (SOBER/__init__.py:1-6)
+setting_parameters = set_settings
+
+
+def __getattr__(name):
+    # lazy: SoberWrapper pulls in the apps stack
+    if name == "SoberWrapper":
+        from .apps.wrapper import SoberWrapper
+
+        return SoberWrapper
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["DatasetPrior", "KeyRing", "Settings", "Sober", "SoberWrapper",
+           "fit_tanimoto_gp", "set_settings", "setting_parameters", "settings",
            "__version__"]

@@ -24,7 +24,11 @@ same model. A parabolic mean's parameters and priors ride in the GP dicts
 as its mu, cov, bounds, rounds and regime (`truncated_gaussian_*`), and the
 ECM simulator as its parameters, frequencies and observed spectrum
 (`ecm_from_numpy`), whose noise JAX draws from a stream torch cannot
-redraw. Nothing here imports jax.
+redraw. The multitask GPs and the pathwise sampler's basis go across as
+well: an ICMState (its inputs, caches and kernel id), a MultiTaskGPState
+(one GP dict a task, sliced from JAX's batched state) and an RFFBasis
+(`icm_state_*`, `multitask_gp_*`, `rff_basis_*`). Nothing here imports
+jax.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ import torch
 from .config import resolve_device
 from .gp.exact import GPConfig, GPParams, GPState
 from .gp.fbgp import ChainCache, FitboGP, FullyBayesianGP, RBFHyperPrior
+from .gp.multitask import ICMState, MultiTaskGPState
+from .gp.sampling import RFFBasis
 from .gp.warped import ScaleMmltGP
 from .ops.kernels import Kernel
 from .priors.continuous import Gaussian, TruncatedGaussian, Uniform
@@ -301,3 +307,50 @@ def ecm_from_numpy(d: dict, device=None) -> CanonicalECMTwoRCs:
                              sigma=d["sigma"], omega=d["omega"], device=device)
     sim.reZ, sim.imZ = _tensor(d["reZ"], device), _tensor(d["imZ"], device)
     return sim
+
+
+_ICM_ARRAYS = ("x", "yt", "y_mean", "y_std", "lengthscale", "noise", "task_cov", "qx",
+               "lx", "qb", "lb", "alpha")
+
+
+def icm_state_to_numpy(st) -> dict:
+    """The dict `icm_state_from_numpy` reads, from a sober_tpu ICMState."""
+    return {**{k: np.asarray(getattr(st, k)) for k in _ICM_ARRAYS},
+            "kernel_id": int(np.asarray(st.kernel_id))}
+
+
+def icm_state_from_numpy(d: dict, device=None) -> ICMState:
+    """The port's ICMState with the fitted hypers, task covariance and
+    eigen-caches of a sober_tpu ICMState, carried over (no refit)."""
+    return ICMState(**{k: _tensor(d[k], device) for k in _ICM_ARRAYS},
+                    kernel_id=int(d["kernel_id"]))
+
+
+def multitask_gp_to_numpy(mt) -> dict:
+    """The dict `multitask_gp_from_numpy` reads, from a sober_tpu
+    MultiTaskGPState: its batched GPState sliced into one dict a task."""
+    batched = gp_state_to_numpy(mt.states)
+    take = lambda a, t: None if a is None else a[t]
+    states = []
+    for t in range(mt.n_tasks):
+        one = {k: (take(v, t) if k in _STATE_ARRAYS else v) for k, v in batched.items()}
+        one["kernel_params"] = {k: v[t] for k, v in batched["kernel_params"].items()}
+        one["mean_params"] = {k: v[t] for k, v in batched["mean_params"].items()}
+        states.append(one)
+    return {"n_tasks": int(mt.n_tasks), "states": states}
+
+
+def multitask_gp_from_numpy(d: dict, device=None) -> MultiTaskGPState:
+    """The port's MultiTaskGPState, one carried GPState a task."""
+    return MultiTaskGPState(tuple(gp_state_from_numpy(s, device) for s in d["states"]),
+                            d["n_tasks"])
+
+
+def rff_basis_to_numpy(basis) -> dict:
+    """The dict `rff_basis_from_numpy` reads, from a sober_tpu RFFBasis."""
+    return {k: np.asarray(getattr(basis, k)) for k in RFFBasis._fields}
+
+
+def rff_basis_from_numpy(d: dict, device=None) -> RFFBasis:
+    """The port's RFFBasis on the same frequencies, phases and scales."""
+    return RFFBasis(*(_tensor(d[k], device) for k in RFFBasis._fields))

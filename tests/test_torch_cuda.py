@@ -488,3 +488,74 @@ def test_truncated_gaussian_next_batch_on_card(cuda):
         assert tg._use_gibbs == gibbs
         s = tg.sample(torch.Generator(device=cuda).manual_seed(1), 4096)
         assert bool(torch.isfinite(s).all()) and bool(((s >= 0) & (s <= 1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ts", "dts", "sober_ts", "turbo", "hallucination"])
+def test_baseline_batch_on_card(cuda, method):
+    """A batch-BO baseline on a padded Branin state on the card: its
+    posterior Grams launch the RBF kernel (SOBER-TS also CAR), the batch is
+    finite, of its shape and inside the box, TS's rows distinct."""
+    from sober_tpu_torch.benchmarks import batch_bo as bo
+    from sober_tpu_torch.gp.exact import fit_gp_padded
+    from sober_tpu_torch.tasks import setup_branin
+
+    prior, f = setup_branin(device=cuda)
+    x = prior.sample(None, 10)
+    model = fit_gp_padded(x, f(x))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    run = {"ts": lambda: bo.thompson_sampling(gen, model, prior, 1024, 8),
+           "dts": lambda: bo.decoupled_thompson_sampling(gen, model, prior, 2048, 8),
+           "sober_ts": lambda: bo.sober_ts(gen, model, prior, 8, n_cand_super=2048,
+                                           n_cand=256, n_nys=64),
+           "turbo": lambda: bo.turbo(gen, bo.TurboState(dim=2, batch_size=8), model, prior, 8),
+           "hallucination": lambda: bo.hallucination(
+               gen, model, lambda a, b: fit_gp_padded(a, b), prior, 2)}[method]
+    rbf0, car0 = rbf_gram.launches, car_eliminate.launches
+    xb = run()
+    assert rbf_gram.launches > rbf0
+    assert (car_eliminate.launches > car0) == (method == "sober_ts")
+    lo, hi = prior.bounds
+    assert xb.device.type == "cuda" and xb.shape == ((2, 2) if method == "hallucination"
+                                                     else (8, 2))
+    assert bool(torch.isfinite(xb).all()) and bool(((xb >= lo) & (xb <= hi)).all())
+    if method == "ts":
+        assert len(torch.unique(xb, dim=0)) == 8
+
+
+@pytest.mark.cuda
+def test_icm_fit_on_card(cuda):
+    """fit_icm_gp on the card against the CPU on the same data: the loss at
+    the CPU fit's raw parameters within 1e-4 relative, and the card's
+    fitted loss within 1e-3 of the CPU's; the joint covariances factor."""
+    from sober_tpu_torch.gp import multitask as mt
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1, 1, (64, 6)).astype(np.float32)
+    y = np.stack([np.sin(2 * x[:, 0]), x[:, 1] * x[:, 2], np.cos(x[:, 3]) + x[:, 0]], 1)
+    y = (y + 0.03 * rng.normal(size=y.shape)).astype(np.float32)
+    ys = (y - y.mean(0)) / y.std(0, ddof=1)
+    raw = {k: v for k, v in mt._icm_init(torch.as_tensor(x), 3, 3, True).items()}
+    loss = lambda dev: float(mt._icm_neg_mll({k: v.to(dev) for k, v in raw.items()},
+                                             torch.as_tensor(x, device=dev),
+                                             torch.as_tensor(ys, device=dev), 0))
+    assert abs(loss(cuda) - loss("cpu")) <= 1e-4 * abs(loss("cpu"))
+    st_g = mt.fit_icm_gp(torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda),
+                         ard=True)
+    st_c = mt.fit_icm_gp(torch.as_tensor(x), torch.as_tensor(y), ard=True)
+    def fitted(st):
+        d = st.lx[:, None] * st.lb[None] + st.noise
+        return 0.5 * float(torch.sum(st.yt ** 2 / d) + torch.sum(torch.log(d))
+                           + st.yt.numel() * np.log(2 * np.pi))
+    assert fitted(st_g) <= fitted(st_c) + 1e-3 * abs(fitted(st_c))
+    cov = mt.task_posterior_cov_icm(st_g, st_g.x[:16])
+    assert bool((torch.linalg.cholesky_ex(cov)[1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_is_cuda_on_card(cuda):
+    from sober_tpu_torch import compat
+
+    tm = compat.TensorManager()
+    assert tm.is_cuda() and tm.rand(2, 8).device.type == "cuda"
+    assert not compat.TensorManager(device="cpu").is_cuda()

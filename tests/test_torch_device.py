@@ -6,16 +6,17 @@ import numpy as np
 import pytest
 import torch
 
-from sober_tpu_torch import Sober, config, interop
-from sober_tpu_torch.apps import bolfi, wrapper
+from sober_tpu_torch import Sober, compat, config, interop
+from sober_tpu_torch.apps import bolfi, inverse, wrapper
+from sober_tpu_torch.benchmarks import batch_bo
 from sober_tpu_torch.core.sampler import RecombinationSampler
-from sober_tpu_torch.gp import exact, fbgp, warped
+from sober_tpu_torch.gp import exact, fbgp, multitask, warped
 from sober_tpu_torch.ops import kernels
 from sober_tpu_torch.priors import continuous, dataset, discrete, tmvn, wkde
 from sober_tpu_torch.tasks import discrete as discrete_tasks
-from sober_tpu_torch.tasks import ecm, synthetic
+from sober_tpu_torch.tasks import ecm, svm, synthetic
 from sober_tpu_torch.tasks.drug import setup_malaria, setup_solvent
-from sober_tpu_torch.utils import prng, sobol
+from sober_tpu_torch.utils import prng, sobol, timing
 
 
 def test_resolve_device_defaults_to_cuda():
@@ -39,8 +40,14 @@ def _raw_params():
 def _tensors(obj):
     if isinstance(obj, torch.Tensor):
         return [obj]
-    if isinstance(obj, prng.KeyRing):
+    if isinstance(obj, (prng.KeyRing, timing.Tracer)):
         return [torch.empty(0, device=obj.device)]
+    if isinstance(obj, compat.TensorManager):
+        return [obj.ones(2), obj.rand(2, 4), obj.randperm(3), *_tensors(obj.keys)]
+    if isinstance(obj, multitask.ICMState):
+        return [t for t in obj if isinstance(t, torch.Tensor)]
+    if isinstance(obj, multitask.MultiTaskGPState):
+        return _tensors(obj.states)
     if isinstance(obj, RecombinationSampler):
         return _tensors(obj.keys)
     if isinstance(obj, kernels.Kernel):
@@ -61,8 +68,13 @@ def _tensors(obj):
     if isinstance(obj, ecm.CanonicalECMTwoRCs):
         return [obj.omega, obj.theta_true, obj.reZ, obj.imZ, obj.mu, obj.sigma]
     if isinstance(obj, wrapper.SoberWrapper):
-        return [obj.bounds, obj.diagonalization, obj.X_all, obj.mean,
-                *_tensors(obj.prior), *_tensors(obj.keys)]
+        out = [obj.bounds, obj.diagonalization, obj.X_all, obj.mean,
+               *_tensors(obj.prior), *_tensors(obj.keys)]
+        if isinstance(obj, inverse.InverseModel):
+            out += [obj.observations_all, obj.observations_all_mean,
+                    obj.observations_all_std, obj.Y_all, obj.LL_all,
+                    *_tensors(obj.inverse_model), *_tensors(obj.surrogate_model)]
+        return out
     if isinstance(obj, continuous.Uniform):
         return [obj.bounds, *obj._sobol[:2]]
     if isinstance(obj, continuous.Gaussian):
@@ -110,6 +122,23 @@ def _state_dict(n=4):
             "noise": np.full((), 1e-4), "x": np.zeros((n, 1)), "y": np.zeros(n),
             "y_mean": np.zeros(()), "y_std": np.ones(()), "chol": eye,
             "alpha": np.zeros(n), "mask": None, "linv": eye}
+
+
+def _icm_dict(n=4, t=2):
+    eye = np.eye(n)
+    return {"x": np.zeros((n, 1)), "yt": np.zeros((n, t)), "y_mean": np.zeros(t),
+            "y_std": np.ones(t), "lengthscale": np.ones(()), "noise": np.full((), 0.1),
+            "task_cov": np.eye(t), "qx": eye, "lx": np.ones(n), "qb": np.eye(t),
+            "lb": np.ones(t), "alpha": np.zeros((n, t)), "kernel_id": 0}
+
+
+def _traced():
+    """A Tracer and one blocking span on its device."""
+    tracer = timing.Tracer()
+    with tracer.span("gp_fit", block=True):
+        pass
+    assert tracer.summary()["gp_fit"]["count"] == 1
+    return tracer
 
 
 def _loglik(n=6):
@@ -185,6 +214,22 @@ CONSTRUCTORS = {
         {"Xobs": np.zeros((4, 1)), "fobs": np.zeros(4), "mask": np.ones(4),
          "eta": np.ones(()), "w_qd": np.full(2, 0.5), "Theta_qd": np.ones((2, 4)),
          "linv": np.stack([np.eye(4)] * 2), "alpha": np.zeros((2, 4))})),
+    "InverseModel": (wrapper, lambda: inverse.InverseModel(
+        model=lambda x: np.stack([x[:, 0] + x[:, 1], x[:, 0] - x[:, 1]], axis=1),
+        model_initial_samples=8, bounds=[[-1.0, -1.0], [1.0, 1.0]],
+        parallelization=False)),
+    "TensorManager": (compat, lambda: compat.TensorManager(seed=1)),
+    "turbo (TurboState)": (continuous, lambda: batch_bo.turbo(
+        torch.Generator().manual_seed(0), batch_bo.TurboState(dim=2, batch_size=4),
+        _cpu_state(), continuous.Uniform([[0.0, 0.0], [1.0, 1.0]]), 4)),
+    "setup_svm": (svm, lambda: svm.setup_svm()),
+    "Tracer": (timing, _traced),
+    "icm_state_from_numpy": (interop, lambda: interop.icm_state_from_numpy(_icm_dict())),
+    "multitask_gp_from_numpy": (interop, lambda: interop.multitask_gp_from_numpy(
+        {"n_tasks": 2, "states": [_state_dict(), _state_dict()]})),
+    "rff_basis_from_numpy": (interop, lambda: interop.rff_basis_from_numpy(
+        {"omega": np.ones((8, 2)), "phase": np.zeros(8), "scale": np.ones(()),
+         "lengthscale": np.ones(())})),
     "scale_mmlt_from_numpy": (interop, lambda: interop.scale_mmlt_from_numpy(
         {"state": _state_dict(), "beta": np.zeros(()), "y_log": np.zeros(4),
          "kernel_name": "rbf", "optimiser": "lbfgs"})),

@@ -22,13 +22,18 @@ from sober_tpu_torch.ops.rbf_gram import rbf_gram, rbf_gram_reference
 
 
 def test_import_without_jax():
-    code = ("import sober_tpu_torch, sober_tpu_torch.core.fused, "
-            "sober_tpu_torch.core.sober, sober_tpu_torch.core.fused_sampling, "
-            "sober_tpu_torch.gp.tanimoto, sober_tpu_torch.ops.tanimoto_gram, "
-            "sober_tpu_torch.priors, sober_tpu_torch.tasks, "
-            "sober_tpu_torch.utils.prng, sober_tpu_torch.interop, sys; "
-            "assert not any(m == 'jax' or m.startswith('jax.') "
-            "for m in sys.modules), 'jax imported'")
+    """Every module of the port imports, and none of them imports jax."""
+    code = ("import pkgutil, sys, importlib, sober_tpu_torch; "
+            "names = [m.name for m in pkgutil.walk_packages("
+            "sober_tpu_torch.__path__, 'sober_tpu_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "assert {'sober_tpu_torch.compat', 'sober_tpu_torch.apps.inverse', "
+            "'sober_tpu_torch.benchmarks.batch_bo', 'sober_tpu_torch.gp.multitask', "
+            "'sober_tpu_torch.gp.sampling', 'sober_tpu_torch.utils.timing', "
+            "'sober_tpu_torch.tasks.svm', 'sober_tpu_torch.gp.fbgp', "
+            "'sober_tpu_torch.priors.tmvn'} <= set(names), names; "
+            "assert not any(m == 'jax' or m.startswith('jax.') or m == 'sober_tpu' "
+            "or m.startswith('sober_tpu.') for m in sys.modules), 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
