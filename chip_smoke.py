@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eleven paths. The first is one exact-GP batch-BO iteration on a continuous
+Twelve paths. The first is one exact-GP batch-BO iteration on a continuous
 domain: a warm-started MAP refit of the GP hypers, the posterior cache, the
 incumbent eta, and the fused acquisition (pi weights, Nystrom features, the
 halving tree of Caratheodory eliminations). The second is one
@@ -29,7 +29,9 @@ expectation propagation. The tenth is the batch-BO baselines of tutorials
 local penalisation, TurBO, SOBER-TS beside SOBER) on Branin. The eleventh
 is the inverse model on the ECM spectrum (an ICM multitask GP trained on
 SOBER-chosen simulations), with the reference-name surface (compat). The
-script
+twelfth is the user entry points: every script of examples_torch/ and
+tutorials_torch/ but svm through its main(), and tools/acceptance_torch.py's
+Shekel task at the reference config. The script
 
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
@@ -88,10 +90,11 @@ script
  17. runs the identity-simulator EP (phase ep_flow: within 0.15 of theta*
      and closer than the prior) and the Gibbs and tilting samplers at
      tests/test_mvn.py's tail boxes (phase tmvn_tail: its tolerances);
- 18. runs tutorial 08's nine methods at its config (phase batch_bo_zoo: 3
-     iterations of batch 20, each batch finite and inside the box, TS's
-     rows distinct; bests, seconds and launches per method, no gate) and
-     tutorial 07's four (phase thompson_compare: 4 iterations of batch 25),
+ 18. runs tutorials_torch/08's nine methods through its own main and
+     loop at its config (phase batch_bo_zoo: 3 iterations of batch 20, each
+     batch finite and inside the box, TS's rows distinct; bests, seconds
+     and launches per method, no gate) and tutorials_torch/07's four
+     through its main (phase thompson_compare: 4 iterations of batch 25),
      after the pathwise sampler, the joint samples and the DPP log-det on
      the card held to the CPU against float64;
  19. runs InverseModel on the ECM spectrum (phase inverse_ecm: 100 draws,
@@ -100,7 +103,16 @@ script
      holds fit_icm_gp on the card to the CPU at n = 100; checks compat's
      TensorManager, the two CAR entry points and a Tracer span on the card
      (phase compat_surface);
- 20. holds the RBF and CAR kernels at every shape phases 9-19 launched;
+ 20. runs every other script of examples_torch/ and tutorials_torch/ but
+     svm (which needs scikit-learn) at its own widths with its iterations
+     cut to 1 or 2, each batch it evaluates finite and in the domain, a
+     dataset's indices distinct (phase torch_scripts: seconds, best and
+     launches per script), then tools/acceptance_torch.py's Shekel seed 0
+     at the reference config for 15 iterations beside the JAX package's
+     row, no gate (phase acceptance_shekel);
+ 21. holds the RBF, CAR, Tanimoto and bit-pack kernels at every shape the
+     screening iteration and phases 9-20 launched, the Tanimoto ones at
+     the bit densities they had there;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -111,6 +123,8 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import importlib.util
+import io
 import json
 import multiprocessing
 import os
@@ -204,17 +218,17 @@ EP_RUN = dict(ep_iterations=1, sober_iterations=2, model_samples_per_iteration=1
 # (identity on [3, 4]^2) boxes: draws, and the Gibbs and tilting mean and sd
 # tolerances in sd units
 TMVN_DRAWS, TMVN_TOL = 20_000, {"gibbs": (0.08, 0.10), "tilting": (0.04, 0.05)}
-# tutorials/08_benchmark_batch_bo.py:18-56 on Branin (truth 10.6043): initial
-# points, BATCH, POOL, ITERS; DPP-TS's and GIBBON's pools, DPP-TS's MCMC
-# steps, SOBER's n_nys, SOBER-TS's n_cand and n_nys
-ZOO = dict(n_init=10, batch=20, pool=4096, iters=3, small_pool=2048, n_mcmc=20,
-           sober_nys=200, ts_cand=1024, ts_nys=128)
 BRANIN_TRUTH = 10.6043
-# tutorials/07_compare_thompson_sampling.py:19-36: iterations, batch;
-# SOBER's next_batch(8192, 256), TS's pool, DTS's pool (4,096 features),
-# SOBER-TS's 8192 / 1024 / 128; the sampling holds' query counts
-THOMPSON = dict(n_iter=4, batch=25, sober=(8192, 256), ts_pool=4096, dts_pool=8192,
-                ts_super=8192, ts_cand=1024, ts_nys=128, hold_paths=8192, hold_joint=64)
+# the batch-BO tutorials whose own loops phases thompson_compare and
+# batch_bo_zoo drive, at their configs; the acquisitions whose rows must be
+# distinct (the ones that draw without repeats)
+TUTORIAL_07 = "tutorials_torch/07_compare_thompson_sampling.py"
+TUTORIAL_08 = "tutorials_torch/08_benchmark_batch_bo.py"
+DISTINCT_ROWS = ("thompson_sampling", "decoupled_thompson_sampling", "gibbon", "sober_ts")
+# tutorial 07's first state (10 Sobol points of Branin), whose pathwise
+# sampler, joint samples and DPP log-det phase_small_sampling_vs_cpu holds:
+# initial points, batch, the holds' query counts
+THOMPSON = dict(n_init=10, batch=25, hold_paths=8192, hold_joint=64)
 # InverseModel on the ECM spectrum at the wrapper phase's sizes:
 # model_initial_samples, batches, model samples a batch, integration nodes,
 # posterior draws at the observed spectrum
@@ -952,8 +966,9 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
     torch.cuda.synchronize()
     tanimoto_gram_packed.launches = 0
     t0 = time.perf_counter()
-    model = fit_tanimoto_gp(x_obs, y_obs)
-    torch.cuda.synchronize()
+    with counted({}):                                 # the shapes, for phase_path_shapes
+        model = fit_tanimoto_gp(x_obs, y_obs)
+        torch.cuda.synchronize()
     fit_s, fit_launches = time.perf_counter() - t0, tanimoto_gram_packed.launches
     require(fit_launches > 0, "dataset fit: the Tanimoto kernel never launched")
     emit(phase="dataset_fit", n_obs=n_obs, n_bits=n_bits, seconds=fit_s,
@@ -966,15 +981,15 @@ def phase_dataset_iteration(pool, targets, counts: dict) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for fn in (tanimoto_gram_packed, pack_bits, car_eliminate, rbf_gram):
-        fn.launches = 0
+    zero_counts()
     variants0 = dict(car_eliminate.variant_launches)
     reads0, loop_packs0 = check_fingerprints.reads, POOLS.packs
     times = []
     for it in range(1 + ITERS):                       # one warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        idx_g, x_batch = sober.next_batch(n_rec, n_nys, batch)
+        with counted({}) if it == 0 else contextlib.nullcontext():
+            idx_g, x_batch = sober.next_batch(n_rec, n_nys, batch)
         torch.cuda.synchronize()
         if it:
             times.append(time.perf_counter() - t0)
@@ -1118,32 +1133,42 @@ def check_sober_batch(sober, seen, xb, legal, batch, label) -> dict:
 def launch_counts() -> dict:
     from sober_tpu_torch.ops.car import car_eliminate
     from sober_tpu_torch.ops.rbf_gram import rbf_gram
+    from sober_tpu_torch.ops.tanimoto_gram import pack_bits, tanimoto_gram_packed
 
-    return {"rbf_gram": rbf_gram.launches, "car_eliminate": car_eliminate.launches}
+    return {"rbf_gram": rbf_gram.launches, "car_eliminate": car_eliminate.launches,
+            "tanimoto_gram": tanimoto_gram_packed.launches,
+            "pack_bits": pack_bits.launches}
 
 
 def zero_counts() -> None:
     from sober_tpu_torch.ops.car import car_eliminate
     from sober_tpu_torch.ops.rbf_gram import rbf_gram
+    from sober_tpu_torch.ops.tanimoto_gram import pack_bits, tanimoto_gram_packed
 
-    rbf_gram.launches = car_eliminate.launches = 0
+    for fn in (rbf_gram, car_eliminate, tanimoto_gram_packed, pack_bits):
+        fn.launches = 0
 
 
 # (n, m, d, ard) of every RBF Gram and (m, q) of every CAR basis that the
-# Sober loop, the Branin gate, the Ising step and the discrete flows launch
+# paths driven under `counted` launch; (n, m, words) of every Tanimoto Gram
+# and (n, d) of every bit pack, each with its operands' mean popcount or bit
+# density at first sight (a device tensor, read after the paths ran)
 PATH_RBF_SHAPES, PATH_CAR_SHAPES = set(), set()
+PATH_TANIMOTO_SHAPES, PATH_PACK_SHAPES = {}, {}
 
 
 @contextlib.contextmanager
 def counted(path: dict, shapes: dict | None = None):
-    """Adds the RBF and CAR launches made inside the block to `path`, and
-    their shapes to PATH_RBF_SHAPES and PATH_CAR_SHAPES; with `shapes`, the
-    launches of each ("rbf_gram", n, m, d) and ("car_eliminate", m, q) to
-    it too."""
+    """Adds the launches of the four kernels made inside the block to
+    `path`, and their shapes to PATH_RBF_SHAPES, PATH_CAR_SHAPES,
+    PATH_TANIMOTO_SHAPES and PATH_PACK_SHAPES; with `shapes`, the launches
+    of each ("rbf_gram", n, m, d) and ("car_eliminate", m, q) to it too."""
     # the modules, not the functions of the same names that ops/ exports
     rbf = importlib.import_module("sober_tpu_torch.ops.rbf_gram")
     car = importlib.import_module("sober_tpu_torch.ops.car")
+    tan = importlib.import_module("sober_tpu_torch.ops.tanimoto_gram")
     rbf_inner, car_inner = rbf._launch, car._launch
+    gram_inner, pack_inner = tan._gram, tan.pack_bits
 
     def tally(key):
         if shapes is not None:
@@ -1159,12 +1184,29 @@ def counted(path: dict, shapes: dict | None = None):
         tally(("car_eliminate", *big_n.shape[-2:]))
         return car_inner(mu, big_n, row_mask, n_take, plan)
 
+    def gram_launch(xw, nx, yw, ny):
+        key = (xw.shape[0], yw.shape[0], xw.shape[1])
+        if key not in PATH_TANIMOTO_SHAPES and min(key) > 0:
+            PATH_TANIMOTO_SHAPES[key] = torch.stack([nx.float().mean(), ny.float().mean()])
+        return gram_inner(xw, nx, yw, ny)
+
+    def pack_launch(x):
+        if tuple(x.shape) not in PATH_PACK_SHAPES and x.numel() > 0:
+            PATH_PACK_SHAPES[tuple(x.shape)] = x.float().mean()
+        return pack_inner(x)
+    # pack_bits counts its launches on the module's name, this wrapper's
+    # while it stands there; they are handed back on the way out
+    pack_launch.launches = 0
+
     before = launch_counts()
     rbf._launch, car._launch = rbf_launch, car_launch
+    tan._gram, tan.pack_bits = gram_launch, pack_launch
     try:
         yield
     finally:
         rbf._launch, car._launch = rbf_inner, car_inner
+        tan._gram, tan.pack_bits = gram_inner, pack_inner
+        pack_inner.launches += pack_launch.launches
     for name, n in launch_counts().items():
         path[name] = path.get(name, 0) + n - before[name]
 
@@ -1192,11 +1234,18 @@ def hold_rbf(params: dict, x, y, label: str) -> dict:
 
 
 def phase_path_shapes() -> None:
-    """The RBF and CAR kernels against their plain versions at every shape
-    the Sober loop, the Branin gate, the Ising step and the discrete flows
-    launched, so every tile and variant the host picked on those paths is
-    held on the card: each (n, m, d, ard) Gram on coordinates in [-1, 1]
-    (phase_rbf's draw), each (m, q) basis on car_problem's."""
+    """Each kernel against its plain version at every shape the paths
+    driven under `counted` launched, so every tile and variant the host
+    picked on those paths is held on the card: each (n, m, d, ard) RBF Gram
+    on coordinates in [-1, 1] (phase_rbf's draw), each (m, q) CAR basis on
+    car_problem's, each (n, m, words) Tanimoto Gram on 0/1 rows of 32 x words
+    bits at the density its operands had on the path (within 1e-6, as
+    phase_tanimoto), and each (n, d) bit pack at its path density (words
+    and counts equal to the reference's)."""
+    from sober_tpu_torch.ops.tanimoto_gram import (pack_bits, pack_bits_reference,
+                                                   tanimoto_similarity,
+                                                   tanimoto_similarity_reference)
+
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
@@ -1212,6 +1261,29 @@ def phase_path_shapes() -> None:
          shapes=sorted(PATH_RBF_SHAPES), worst=worst)
     for m, q in sorted(PATH_CAR_SHAPES):
         emit(phase="car_path_shape", **hold_car(m, *car_problem(m, q, dev)))
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bits = lambda n, d, p: (torch.rand((n, d), generator=gen, device=dev) < p).float()
+    rows = []
+    for (n, m, words), means in sorted(PATH_TANIMOTO_SHAPES.items()):
+        d = 32 * words
+        px, py = (means / d).clamp(0.0, 1.0).tolist()
+        x, y = bits(n, d, px), bits(m, d, py)
+        err = float((tanimoto_similarity(x, y)
+                     - tanimoto_similarity_reference(x, y)).abs().max())
+        require(err <= 1e-6, f"path shapes: tanimoto {(n, m, d)} at densities "
+                             f"{px:.4f}, {py:.4f}: err {err}")
+        rows.append({"shape": [n, m, d], "density": [px, py], "max_abs_err": err})
+    emit(phase="tanimoto_path_shapes", n_shapes=len(rows), tol=1e-6, shapes=rows)
+    rows = []
+    for (n, d), density in sorted(PATH_PACK_SHAPES.items()):
+        p = float(density)
+        x = bits(n, d, p)
+        (words, counts), (want_words, want_counts) = pack_bits(x), pack_bits_reference(x)
+        require(torch.equal(words, want_words) and torch.equal(counts, want_counts),
+                f"path shapes: pack_bits {(n, d)} at density {p:.4f} differs")
+        rows.append({"shape": [n, d], "density": p})
+    emit(phase="pack_path_shapes", n_shapes=len(rows), shapes=rows)
 
 
 def add_counts(counts: dict, path: dict, label: str) -> None:
@@ -1496,15 +1568,38 @@ def phase_ising_step(counts: dict) -> None:
          best_observed=float(y_all.max()))
 
 
-def acceptance_record(task: str, seed: int):
-    """The JAX package's best value per iteration for (task, seed) in
-    docs/acceptance_runs.jsonl, and the config it ran, or None."""
+def acceptance_record(task: str, seed: int, n: int = FLOW_ITERS + 1):
+    """The JAX package's best value per iteration (the first n) for (task,
+    seed) in docs/acceptance_runs.jsonl, and the config it ran, or None."""
     path = Path(__file__).resolve().parent / "docs" / "acceptance_runs.jsonl"
     for line in path.read_text().splitlines():
         row = json.loads(line)
         if (row["task"], row["seed"]) == (task, seed):
-            return {"cfg": row["cfg"], "best_per_iter": row["best_per_iter"][:FLOW_ITERS + 1]}
+            return {"cfg": row["cfg"], "best_per_iter": row["best_per_iter"][:n]}
     return None
+
+
+def domain_check(prior):
+    """A function of a batch: whether its rows are finite and lie in the
+    prior's domain: a continuous block inside the closed box, a binary block
+    in {0, 1}, a categorical block among its values (a mixed prior's blocks
+    in their order)."""
+    def discrete(p, x):
+        if hasattr(p, "value_table"):
+            hit = (x[:, :, None] == p.value_table[None]) & p.valid_mask[None]
+            return bool(hit.any(-1).all())
+        return bool(((x == 0) | (x == 1)).all())
+
+    box = lambda x: bool(((x >= prior.bounds[0]) & (x <= prior.bounds[1])).all())
+    if hasattr(prior, "prior_disc"):
+        def legal(x):
+            xc, xd = prior.separate_samples(x)
+            return box(xc) and discrete(prior.prior_disc, xd)
+    elif prior.type in ("binary", "categorical"):
+        legal = lambda x: discrete(prior, x)
+    else:
+        legal = box
+    return lambda x: bool(torch.isfinite(x).all()) and legal(x)
 
 
 def phase_discrete_flows(counts: dict) -> None:
@@ -1528,19 +1623,7 @@ def phase_discrete_flows(counts: dict) -> None:
     path = {}
     for task, setup, seed, n_init, batch, n_rec, n_nys in FLOWS:
         prior, objective = getattr(tasks, setup)(device=dev)
-        disc = getattr(prior, "prior_disc", prior)
-        nc = getattr(prior, "n_dims_cont", 0)
-        if hasattr(disc, "value_table"):
-            legal_disc = lambda xd, disc=disc: bool(
-                (xd[:, :, None] == disc.value_table[None]).any(-1).all())
-        else:
-            legal_disc = lambda xd: bool(((xd == 0) | (xd == 1)).all())
-        if nc:
-            lo, hi = prior.bounds
-            legal = lambda xb, lo=lo, hi=hi, nc=nc, ld=legal_disc: (
-                bool(((xb[:, :nc] >= lo) & (xb[:, :nc] <= hi)).all()) and ld(xb[:, nc:]))
-        else:
-            legal = legal_disc
+        legal = domain_check(prior)
         x = prior.sample(KeyRing(seed, device=dev).next(), n_init)
         y = objective(x)
         sober = Sober(prior, fit_gp_padded(x, y), seed=seed)
@@ -2233,75 +2316,77 @@ def phase_tmvn_tail() -> None:
     emit(phase="tmvn_tail", draws=TMVN_DRAWS, tolerances=TMVN_TOL, **out)
 
 
-def bo_loop(acquire, iters: int, batch: int, label: str, distinct: bool = False) -> dict:
-    """A batch-BO loop on the card as tutorials 07 and 08 run it: 10 Sobol
-    points of the quick-start Branin, then per iteration fit_gp_padded and
-    acquire(gen, model, prior, turbo_state, iteration), each batch finite,
-    of its shape and inside the box (with `distinct`, its rows distinct),
-    TurBO's state updated with the batch's values. Returns the best value,
-    the fit and acquisition seconds (host clock, synced) per iteration."""
-    from sober_tpu_torch.benchmarks import TurboState, update_turbo_state
-    from sober_tpu_torch.gp.exact import fit_gp_padded
-    from sober_tpu_torch.tasks.synthetic import setup_branin
-    from sober_tpu_torch.utils.prng import KeyRing
+def watch_acquisitions(mod, batch: int, label: str, rec: dict) -> None:
+    """Patches a batch-BO tutorial's module so that its own loop is timed
+    and checked: each acquisition it calls (a Sober's next_batch, from the
+    construction on, and each baseline it imported) runs between syncs,
+    its seconds appended to rec["acquisition_s"], and must return a
+    (batch, 2) batch on the card, its rows distinct for DISTINCT_ROWS; each
+    fit the loop makes itself (not the believer's inside an acquisition)
+    is timed into rec["fit_s"]. The objective's rows are checked by
+    watch_batches. rec["method"] names the method that runs."""
+    inside = []
 
-    dev = torch.device("cuda")
-    keys = KeyRing(0, device=dev)
-    prior, f = setup_branin(device=dev)
-    lo, hi = prior.bounds
-    x = prior.sample(keys.next(), ZOO["n_init"])
-    y = f(x)
-    turbo_state = TurboState(dim=2, batch_size=batch)
-    fit_s, acq_s = [], []
-    for it in range(iters):
+    def checked(name, fn, t0=None):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter() if t0 is None else t0
+            inside.append(name)
+            try:
+                xb = fn(*args, **kwargs)
+            finally:
+                inside.pop()
+            torch.cuda.synchronize()
+            rec.setdefault("acquisition_s", []).append(time.perf_counter() - start)
+            what = f"{label} {rec['method']}"
+            require(tuple(xb.shape) == (batch, 2) and xb.device.type == "cuda",
+                    f"{what}: batch {tuple(xb.shape)} on {xb.device}")
+            if name in DISTINCT_ROWS:
+                require(len(torch.unique(xb, dim=0)) == batch, f"{what}: rows not distinct")
+            return xb
+        return run
+
+    for name in DISTINCT_ROWS + ("dpp_ts", "hallucination", "local_penalisation", "turbo"):
+        if hasattr(mod, name):
+            setattr(mod, name, checked(name, getattr(mod, name)))
+    sober_cls, fit = mod.Sober, mod.fit_gp_padded
+
+    def sober(*args, **kwargs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model = fit_gp_padded(x, y)
+        s = sober_cls(*args, **kwargs)
+        s.next_batch = checked("Sober", s.next_batch, t0)
+        return s
+
+    def timed_fit(*args, **kwargs):
+        if inside:
+            return fit(*args, **kwargs)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        xb = acquire(keys.next(), model, prior, turbo_state, it)
+        t0 = time.perf_counter()
+        out = fit(*args, **kwargs)
         torch.cuda.synchronize()
-        fit_s.append(t1 - t0)
-        acq_s.append(time.perf_counter() - t1)
-        require(tuple(xb.shape) == (batch, 2) and xb.device.type == "cuda"
-                and bool(torch.isfinite(xb).all()) and bool(((xb >= lo) & (xb <= hi)).all()),
-                f"{label} {it}: batch {tuple(xb.shape)} on {xb.device}, finite, in the box")
-        if distinct:
-            require(len(torch.unique(xb, dim=0)) == batch, f"{label} {it}: rows not distinct")
-        yb = f(xb)
-        x, y = torch.cat([x, xb]), torch.cat([y, yb])
-        turbo_state = update_turbo_state(turbo_state, yb)
-    return {"best": float(y.max()), "fit_s": fit_s, "acquisition_s": acq_s}
+        rec.setdefault("fit_s", []).append(time.perf_counter() - t0)
+        return out
+    mod.Sober, mod.fit_gp_padded = sober, timed_fit
 
 
-def zoo_methods() -> dict:
-    """tutorials/08's nine methods at its config (ZOO), as acquire
-    callables for bo_loop, and whether each batch's rows must be distinct."""
-    from sober_tpu_torch import Sober
-    from sober_tpu_torch.benchmarks import (decoupled_thompson_sampling, dpp_ts, gibbon,
-                                            hallucination, local_penalisation, sober_ts,
-                                            thompson_sampling, turbo)
-    from sober_tpu_torch.gp.exact import fit_gp_padded
-
-    z = ZOO
-    return {
-        "SOBER": (lambda g, m, p, s, it: Sober(p, m).next_batch(z["pool"], z["sober_nys"],
-                                                                 z["batch"]), False),
-        "TS": (lambda g, m, p, s, it: thompson_sampling(g, m, p, z["pool"], z["batch"]), True),
-        "decoupled TS": (lambda g, m, p, s, it: decoupled_thompson_sampling(
-            g, m, p, z["pool"], z["batch"]), True),
-        "DPP-TS": (lambda g, m, p, s, it: dpp_ts(g, m, p, z["small_pool"], z["batch"],
-                                                 n_mcmc=z["n_mcmc"]), False),
-        "GIBBON": (lambda g, m, p, s, it: gibbon(g, m, p, z["small_pool"], z["batch"]), True),
-        "hallucination": (lambda g, m, p, s, it: hallucination(
-            g, m, lambda xx, yy: fit_gp_padded(xx, yy), p, z["batch"]), False),
-        "local penal.": (lambda g, m, p, s, it: local_penalisation(g, m, p, z["batch"]), False),
-        "TurBO": (lambda g, m, p, s, it: turbo(g, s, m, p, z["batch"]), False),
-        "SOBER-TS": (lambda g, m, p, s, it: sober_ts(g, m, p, z["batch"],
-                                                     n_cand_super=z["pool"],
-                                                     n_cand=z["ts_cand"], n_nys=z["ts_nys"]),
-                     True),
-    }
+@contextlib.contextmanager
+def one_method(name: str, rec: dict, rows: dict, path: dict, shapes: dict):
+    """A method of a tutorial's loop: rec cleared for it, its fit and
+    acquisition seconds and its RBF and CAR launches (in all and by shape)
+    into rows[name], added to path and shapes."""
+    rec.clear()
+    rec["method"] = name
+    launches, method_shapes = {}, {}
+    with counted(launches, method_shapes):
+        yield
+    rows.setdefault(name, {}).update(
+        fit_s=rec.get("fit_s", []), acquisition_s=rec.get("acquisition_s", []),
+        launches=launches, launches_by_shape=by_shape(method_shapes))
+    for k, v in launches.items():
+        path[k] = path.get(k, 0) + v
+    for k, v in method_shapes.items():
+        shapes[k] = shapes.get(k, 0) + v
 
 
 def by_shape(shapes: dict) -> dict:
@@ -2309,41 +2394,35 @@ def by_shape(shapes: dict) -> dict:
     return {" ".join(map(str, k)): v for k, v in shapes.items()}
 
 
-def run_methods(methods: dict, iters: int, batch: int, label: str):
-    """bo_loop for each of `methods` (name -> (acquire, distinct)), its RBF
-    and CAR launches counted; emits a line a method. Returns the rows and
-    the launches, in all and by shape."""
-    path, shapes, rows = {}, {}, {}
-    for name, (acquire, distinct) in methods.items():
-        launches, method_shapes = {}, {}
-        with counted(launches, method_shapes):
-            rows[name] = bo_loop(acquire, iters, batch, f"{label} {name}", distinct)
-        rows[name].update(launches=launches, launches_by_shape=by_shape(method_shapes))
-        for k, v in launches.items():
-            path[k] = path.get(k, 0) + v
-        for k, v in method_shapes.items():
-            shapes[k] = shapes.get(k, 0) + v
-        emit(phase=label + "_method", method=name, **rows[name])
-    return rows, path, shapes
-
-
 def phase_batch_bo_zoo(counts: dict) -> dict:
-    """tutorials/08_benchmark_batch_bo.py on the card at its config (ZOO):
-    each of the nine methods runs 3 iterations of fit_gp_padded and a batch
-    of 20 on Branin from 10 Sobol points, each batch checked (bo_loop; TS,
-    decoupled TS, GIBBON and SOBER-TS rows distinct). Per method the best
-    value (truth 10.6043, no gate), the seconds an iteration and the RBF
-    and CAR launches by shape. Returns the launches by shape."""
+    """tutorials_torch/08_benchmark_batch_bo.py on the card at its config
+    through its own main() and loop, one method a call: each of the nine
+    methods runs ITERS iterations of fit_gp_padded and a batch of BATCH on
+    Branin from 10 Sobol points, each batch checked (watch_acquisitions,
+    watch_batches: of its shape, finite, inside the box; TS, decoupled TS,
+    GIBBON and SOBER-TS rows distinct). Per method the best value (truth
+    10.6043, no gate), the fit and acquisition seconds and the RBF and CAR
+    launches by shape. Returns the launches by shape."""
+    dev = torch.device("cuda")
+    mod = load_script(TUTORIAL_08)
+    rec, rows, path, shapes = {}, {}, {}, {}
+    watch_batches(mod, {}, "batch_bo_zoo")
+    watch_acquisitions(mod, mod.BATCH, "batch_bo_zoo", rec)
     zero_counts()
     t0 = time.perf_counter()
-    rows, path, shapes = run_methods(zoo_methods(), ZOO["iters"], ZOO["batch"], "batch_bo_zoo")
+    for name in mod.METHODS:
+        with one_method(name, rec, rows, path, shapes), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rows[name] = {"best": mod.main(methods=[name], device=dev)[name]}
+        emit(phase="batch_bo_zoo_method", method=name, **rows[name])
     add_counts(counts, path, "batch_bo_zoo")
-    emit(phase="batch_bo_zoo", config=ZOO, truth=BRANIN_TRUTH,
-         best={k: r["best"] for k, r in rows.items()},
+    emit(phase="batch_bo_zoo", script=TUTORIAL_08,
+         config={"batch": mod.BATCH, "pool": mod.POOL, "iters": mod.ITERS},
+         truth=BRANIN_TRUTH, best={k: r["best"] for k, r in rows.items()},
          acquisition_s_per_iteration={k: statistics.mean(r["acquisition_s"])
                                       for k, r in rows.items()},
          seconds=time.perf_counter() - t0, launches_on_path=path)
-    return shapes
+    return shapes, mod.ITERS
 
 
 def phase_small_sampling_vs_cpu() -> dict:
@@ -2365,7 +2444,7 @@ def phase_small_sampling_vs_cpu() -> dict:
 
     dev = torch.device("cuda")
     prior, f = setup_branin(device="cpu")
-    x = prior.sample(KeyRing(0, device="cpu").next(), ZOO["n_init"])
+    x = prior.sample(KeyRing(0, device="cpu").next(), THOMPSON["n_init"])
     model = fit_gp_padded(x, f(x))
     on = {"cpu": model, "cuda": state_to(model, dev), "f64": state_to(model, torch.float64)}
     cast = {"cpu": lambda t: t, "cuda": lambda t: t.to(dev), "f64": lambda t: t.double()}
@@ -2408,34 +2487,41 @@ def phase_small_sampling_vs_cpu() -> dict:
 
 
 def phase_thompson_compare(counts: dict) -> dict:
-    """tutorials/07_compare_thompson_sampling.py on the card at its config
-    (THOMPSON): SOBER next_batch(8192, 256, 25), TS at 4,096, decoupled TS
-    at 8,192 with 4,096 features and SOBER-TS at 8192 / 1024 / 128, each 4
-    iterations of batch 25 on Branin, each batch checked as in
-    phase_batch_bo_zoo; first the samplers on the card against the CPU
-    (phase_small_sampling_vs_cpu). Returns the launches by shape."""
-    from sober_tpu_torch import Sober
-    from sober_tpu_torch.benchmarks import (decoupled_thompson_sampling, sober_ts,
-                                            thompson_sampling)
+    """tutorials_torch/07_compare_thompson_sampling.py on the card through
+    its own main() at its config: SOBER next_batch(8192, 256, 25), TS at
+    4,096, decoupled TS at 8,192 with 4,096 features and SOBER-TS at
+    8192 / 1024 / 128, each n_iter iterations of batch 25 on Branin, each
+    batch checked as in phase_batch_bo_zoo; first the samplers on the card
+    against the CPU (phase_small_sampling_vs_cpu). Returns the launches by
+    shape and the iterations."""
+    import inspect
 
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     small = phase_small_sampling_vs_cpu()
-    t, b = THOMPSON, THOMPSON["batch"]
-    methods = {
-        "sober": (lambda g, m, p, s, it: Sober(p, m, seed=it).next_batch(*t["sober"], b), False),
-        "ts": (lambda g, m, p, s, it: thompson_sampling(g, m, p, t["ts_pool"], b), True),
-        "dts": (lambda g, m, p, s, it: decoupled_thompson_sampling(g, m, p, t["dts_pool"], b),
-                True),
-        "sober_ts": (lambda g, m, p, s, it: sober_ts(g, m, p, b, n_cand_super=t["ts_super"],
-                                                     n_cand=t["ts_cand"], n_nys=t["ts_nys"]),
-                     True)}
+    mod = load_script(TUTORIAL_07)
+    config = {k: v.default for k, v in inspect.signature(mod.main).parameters.items()
+              if k in ("n_iter", "batch")}
+    rec, rows, path, shapes = {}, {}, {}, {}
+    watch_batches(mod, {}, "thompson_compare")
+    watch_acquisitions(mod, config["batch"], "thompson_compare", rec)
+    run = mod.run
+
+    def one_run(method, **kwargs):
+        with one_method(method, rec, rows, path, shapes):
+            return run(method, **kwargs)
+    mod.run = one_run
     zero_counts()
-    rows, path, shapes = run_methods(methods, t["n_iter"], b, "thompson_compare")
+    with contextlib.redirect_stdout(io.StringIO()):
+        best = mod.main(device=dev)
+    for name, row in rows.items():
+        row["best"] = best[name]
+        emit(phase="thompson_compare_method", method=name, **row)
     add_counts(counts, path, "thompson_compare")
-    emit(phase="thompson_compare", config=THOMPSON, truth=BRANIN_TRUTH,
-         best={k: r["best"] for k, r in rows.items()}, small_vs_cpu=small,
-         seconds=time.perf_counter() - t0, launches_on_path=path)
-    return shapes
+    emit(phase="thompson_compare", script=TUTORIAL_07, config=config, truth=BRANIN_TRUTH,
+         best=best, small_vs_cpu=small, seconds=time.perf_counter() - t0,
+         launches_on_path=path)
+    return shapes, config["n_iter"]
 
 
 def phase_inverse_ecm(counts: dict) -> dict:
@@ -2621,44 +2707,225 @@ def phase_compat_surface(counts: dict) -> None:
          launches_on_path=path, launches_by_shape=by_shape(shapes))
 
 
+# the scripts of examples_torch/ and tutorials_torch/ that phase_torch_scripts
+# runs, each with its depth cut: n_iterations 2, or 1 where an earlier phase
+# already times that work; tutorials 07 and 08 run whole in phases
+# thompson_compare and batch_bo_zoo (TUTORIAL_07, TUTORIAL_08); svm needs
+# scikit-learn, which a PyTorch-only GPU install need not carry
+TORCH_SCRIPTS = (
+    ("examples_torch/branin.py", {"n_iterations": 2}),
+    ("examples_torch/hartmann.py", {"n_iterations": 2}),
+    ("examples_torch/shekel.py", {"n_iterations": 2}),
+    ("examples_torch/ackley.py", {"n_iterations": 1}),
+    ("examples_torch/rosenbrock.py", {"n_iterations": 1}),
+    ("examples_torch/ising.py", {"n_iterations": 1}),
+    ("examples_torch/maxsat.py", {"n_iterations": 1}),
+    ("examples_torch/pest.py", {"n_iterations": 1}),
+    ("examples_torch/malaria.py", {"n_iterations": 2}),
+    ("examples_torch/solvent.py", {"n_iterations": 2}),
+    ("examples_torch/fbgp_hartmann.py", {"n_iterations": 1}),
+    ("examples_torch/sbi_ecm.py", {"n_iterations": 2}),
+    ("tutorials_torch/00_quick_start.py", {"n_iterations": 2}),
+    ("tutorials_torch/01_how_sober_works.py", {}),
+    ("tutorials_torch/02_customise_prior.py", {}),
+    ("tutorials_torch/03_customise_acquisition.py", {}),
+    ("tutorials_torch/04_fully_bayesian_gp.py", {"n_iterations": 2}),
+    ("tutorials_torch/05_simulation_based_inference.py", {"n_iterations": 1}),
+    ("tutorials_torch/06_drug_discovery.py", {"n_iterations": 2}),
+    ("tutorials_torch/advanced_01_bolfi.py", {"n_iterations": 2}),
+)
+# tools/acceptance_torch.py's task and seed that phase_acceptance_shekel runs
+ACCEPTANCE_SHEKEL = ("shekel", 0)
+
+
+def load_script(relpath: str):
+    """A script of the repository as a module of its own name."""
+    path = Path(__file__).resolve().parent / relpath
+    name = "chip_smoke_" + relpath.replace("/", "_").removesuffix(".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def watch_batches(mod, seen: dict, label: str) -> None:
+    """Checks every batch a script evaluates: each task setup it imported
+    returns an objective that requires its rows finite and inside the
+    prior's domain (domain_check), and a dataset prior whose query requires
+    distinct indices, in range and still available; seen["best"] keeps the
+    largest value returned (a simulator's discrepancy), seen["legal"] the
+    last domain's check. The rows of a simulator `model_fn` must be finite
+    and inside the script's BOUNDS (advanced_01's)."""
+    def keep(y):
+        seen["best"] = max(seen.get("best", -float("inf")), float(y.max()))
+        seen["batches"] = seen.get("batches", 0) + 1
+
+    def watched_setup(setup):
+        def run(*args, **kwargs):
+            out = setup(*args, **kwargs)
+            if not isinstance(out, tuple):                  # a dataset prior
+                query = out.query
+
+                def checked_query(idx):
+                    idx = torch.as_tensor(idx, device=out.device).reshape(-1)
+                    require(len(torch.unique(idx)) == idx.shape[0]
+                            and int(idx.min()) >= 0 and int(idx.max()) < out.n_total
+                            and bool(out.available[idx].all()),
+                            f"{label}: dataset indices not distinct, in range, available")
+                    y = query(idx)
+                    keep(y)
+                    return y
+                out.query = checked_query
+                return out
+            prior, fn = out
+            legal = seen["legal"] = domain_check(prior)
+
+            def checked(x):
+                require(legal(x), f"{label}: a batch outside {type(prior).__name__}'s domain")
+                y = fn(x)
+                keep(y[0] if isinstance(y, tuple) else y)
+                return y
+            return prior, checked
+        return run
+
+    for name in dir(mod):
+        if name.startswith("setup_"):
+            setattr(mod, name, watched_setup(getattr(mod, name)))
+    if hasattr(mod, "model_fn"):
+        model_fn, (lo, hi) = mod.model_fn, mod.BOUNDS
+
+        def checked_model(theta, **kwargs):
+            theta = np.atleast_2d(np.asarray(theta))
+            require(bool(np.isfinite(theta).all() & (theta >= lo - 1e-5).all()
+                         & (theta <= hi + 1e-5).all()),
+                    f"{label}: simulator rows outside the bounds")
+            y = model_fn(theta, **kwargs)
+            keep(-np.asarray(y))
+            return y
+        mod.model_fn = checked_model
+
+
+def phase_torch_scripts(counts: dict) -> None:
+    """Every script of examples_torch/ and tutorials_torch/ but svm and
+    tutorials 07 and 08 (TORCH_SCRIPTS; those two run whole in their own
+    phases) through its main(device="cuda") at the script's own widths
+    (n_rec, n_nys, batch, pools), its depth cut as TORCH_SCRIPTS lists.
+    Every batch a script evaluates is checked (watch_batches). Per script:
+    the wall seconds, the best value (the largest the objective returned;
+    advanced_01's the smallest simulator output, negated), the RBF, CAR,
+    Tanimoto and pack launches, and its last printed line; a batch that
+    main returns (tutorial 01's) is checked too. A script that raises
+    fails the run."""
+    dev = torch.device("cuda")
+    zero_counts()
+    path, rows, t0 = {}, {}, time.perf_counter()
+    for relpath, cut in TORCH_SCRIPTS:
+        mod = load_script(relpath)
+        seen, launches, printed = {}, {}, io.StringIO()
+        watch_batches(mod, seen, relpath)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with counted(launches), contextlib.redirect_stdout(printed):
+            out = mod.main(device=dev, **cut)
+        torch.cuda.synchronize()
+        if isinstance(out, torch.Tensor) and out.dim() == 2:
+            require(seen["legal"](out), f"{relpath}: the returned batch")
+        lines = printed.getvalue().strip().splitlines()
+        rows[relpath] = {"seconds": time.perf_counter() - t1, "best": seen.get("best"),
+                         "batches_checked": seen.get("batches", 0), "cut": cut,
+                         "launches": launches, "last_printed": lines[-1] if lines else None}
+        emit(phase="torch_script", script=relpath, **rows[relpath])
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+    for name in ("tanimoto_gram", "pack_bits"):
+        require(path[name] > 0, f"torch_scripts: {name} never launched")
+        counts[name] = counts.get(name, 0) + path[name]
+    add_counts(counts, path, "torch_scripts")
+    emit(phase="torch_scripts", scripts=len(rows), launches_on_path=path,
+         whole_in_phases={TUTORIAL_07: "thompson_compare", TUTORIAL_08: "batch_bo_zoo"},
+         seconds=time.perf_counter() - t0)
+
+
+def phase_acceptance_shekel(counts: dict) -> None:
+    """tools/acceptance_torch.py's Shekel task at seed 0 at its reference
+    config (n_init 100, batch 100, n_rec 200,000, n_nys 500, 15 iterations,
+    one observation bucket of 1,664 rows), written to a temporary file:
+    the best, the reset and the acquisition seconds of each iteration beside
+    the JAX package's row for the same seed. No quality gate."""
+    import tempfile
+
+    acc = load_script("tools/acceptance_torch.py")
+    task, seed = ACCEPTANCE_SHEKEL
+    zero_counts()
+    path, t0 = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, counted(path):
+        (row,) = acc.run_task(task, out=os.path.join(tmp, "rows.jsonl"),
+                              device=torch.device("cuda"), seeds=(seed,))
+    require(len(row["best_per_iter"]) == 15 and all(np.isfinite(row["best_per_iter"])),
+            f"acceptance_shekel: {row['best_per_iter']}")
+    add_counts(counts, path, "acceptance_shekel")
+    emit(phase="acceptance_shekel", seed=seed, cfg=row["cfg"],
+         best_per_iter=row["best_per_iter"], resets_per_iter=row["resets_per_iter"],
+         n_pos_per_iter=row["n_pos_per_iter"], acq_s_per_iter=row["acq_s_per_iter"],
+         wall_s=row["wall_s"], jax_record=acceptance_record(task, seed, 15),
+         launches_on_path=path,
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> None:
-    smi, sm_clock = phase_device()
-    phase_build()
+    seconds = {}
+
+    def timed(phase, *args, **kwargs):
+        """phase(*args, **kwargs), its host seconds added to its name's."""
+        t0 = time.perf_counter()
+        out = phase(*args, **kwargs)
+        name = phase.__name__.removeprefix("phase_")
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    smi, sm_clock = timed(phase_device)
+    timed(phase_build)
     summary, counts = {}, {}
-    phase_rbf(summary)
-    phase_rbf_backward()
-    phase_car(summary, sm_clock)
+    timed(phase_rbf, summary)
+    timed(phase_rbf_backward)
+    timed(phase_car, summary, sm_clock)
     t0 = time.perf_counter()
     pool, targets = make_pool()
+    seconds["dataset_pool"] = time.perf_counter() - t0
     emit(phase="dataset_pool", shape=list(pool.shape),
-         density=float(pool.mean()), seconds=time.perf_counter() - t0)
-    phase_tanimoto(summary, pool)
-    phase_small_vs_cpu()
-    phase_small_dataset_vs_cpu()
+         density=float(pool.mean()), seconds=seconds["dataset_pool"])
+    timed(phase_tanimoto, summary, pool)
+    timed(phase_small_vs_cpu)
+    timed(phase_small_dataset_vs_cpu)
     for row in CONFIGS:
-        phase_iteration(row, counts)
-    phase_dataset_iteration(pool, targets, counts)
-    phase_sober_loop(counts)
-    phase_branin_gate(counts)
-    phase_ising_step(counts)
-    phase_discrete_flows(counts)
-    phase_fbgp_refit(counts)
-    phase_fbgp_sweep_factor()
-    phase_rbf_busiest(summary, phase_fbgp_step(counts), "fbgp_step")
-    phase_fbgp_hartmann(counts)
-    phase_basq_evidence(counts)
-    ecm_shapes, quad_shapes = phase_sbi_ecm(counts)
-    phase_rbf_busiest(summary, ecm_shapes, "sbi_ecm", SBI_ECM[1])
-    phase_rbf_busiest(summary, quad_shapes, "sbi_quadrature", top=2)
-    phase_sober_wrapper(counts)
-    phase_ep_flow(counts)
-    phase_tmvn_tail()
-    phase_rbf_busiest(summary, phase_batch_bo_zoo(counts), "batch_bo_zoo", ZOO["iters"], top=3)
-    phase_rbf_busiest(summary, phase_thompson_compare(counts), "thompson_compare",
-                      THOMPSON["n_iter"], top=3)
-    phase_rbf_busiest(summary, phase_inverse_ecm(counts), "inverse_ecm", top=3)
-    phase_compat_surface(counts)
-    phase_path_shapes()
+        timed(phase_iteration, row, counts)
+    timed(phase_dataset_iteration, pool, targets, counts)
+    timed(phase_sober_loop, counts)
+    timed(phase_branin_gate, counts)
+    timed(phase_ising_step, counts)
+    timed(phase_discrete_flows, counts)
+    timed(phase_fbgp_refit, counts)
+    timed(phase_fbgp_sweep_factor)
+    timed(phase_rbf_busiest, summary, timed(phase_fbgp_step, counts), "fbgp_step")
+    timed(phase_fbgp_hartmann, counts)
+    timed(phase_basq_evidence, counts)
+    ecm_shapes, quad_shapes = timed(phase_sbi_ecm, counts)
+    timed(phase_rbf_busiest, summary, ecm_shapes, "sbi_ecm", SBI_ECM[1])
+    timed(phase_rbf_busiest, summary, quad_shapes, "sbi_quadrature", top=2)
+    timed(phase_sober_wrapper, counts)
+    timed(phase_ep_flow, counts)
+    timed(phase_tmvn_tail)
+    for phase in (phase_batch_bo_zoo, phase_thompson_compare):
+        shapes, iters = timed(phase, counts)
+        timed(phase_rbf_busiest, summary, shapes, phase.__name__.removeprefix("phase_"),
+              iters, top=3)
+    timed(phase_rbf_busiest, summary, timed(phase_inverse_ecm, counts), "inverse_ecm", top=3)
+    timed(phase_compat_surface, counts)
+    timed(phase_torch_scripts, counts)
+    timed(phase_acceptance_shekel, counts)
+    timed(phase_path_shapes)
+    emit(phase="phase_seconds", seconds=seconds, total=sum(seconds.values()))
     kernels = []
     for name in ("rbf_gram", "car_eliminate", "tanimoto_gram", "pack_bits"):
         s = summary[name]

@@ -107,12 +107,13 @@ class EmpiricalSampler(RecombinationSampler):
                                                p.categories, p.bounds,
                                                p.continous_first, device=dev)
 
-    def update_prior(self, x_cand, weights):
+    def update_prior(self, x_cand, weights, verbose: bool = False):
         """Fit the proposal to the weighted pool (SOBER/_sampler.py:113-157):
         a continuous proposal as a WKDE of at most 4096 components, bounded
         by the proposal's box (a Gaussian's WKDE has none), a Bernoulli or
         categorical one by its MLE, a mixed one block by block. For the categorical labels
-        x_cand holds category indices in the discrete block."""
+        x_cand holds category indices in the discrete block. `verbose` is
+        the JAX signature's and changes nothing, as there."""
         label = self.label
         if label == "continuous":
             self.prior = update_continuous_prior(
@@ -164,13 +165,14 @@ class EmpiricalSampler(RecombinationSampler):
         return (x,)
 
     def recursive_sampling(self, n_rec: int, n_repeat: int = 5,
-                           need: int | None = None):
+                           verbose: bool = False, need: int | None = None):
         """A fresh pool whose zero-weight rows are refilled by up to
         n_repeat - 1 redraws while at most `need` (self.thresh) rows are
         accepted (SOBER/_sampler.py:205-261); uniform weights, and
         self.flag set, when nothing is ever accepted. Returns (x, w), or
         (x, x_indices, w) for the categorical labels. Adds its host reads
-        (one accepted count a round) to self.last_reads."""
+        (one accepted count a round) to self.last_reads. `verbose` is the
+        JAX signature's and changes nothing, as there."""
         draw = lambda: self._draw(n_rec, redraw=True)
         x, w, self.flag, reads = fs.refill(
             draw, *draw(), self.thresh if need is None else need, n_repeat)
@@ -184,7 +186,8 @@ class EmpiricalSampler(RecombinationSampler):
             return fs.select_nys(self.keys.next(), x_cand, weights, n_nys)
         return x_cand[deweighted_resampling(self.keys.next(), weights, n_nys)]
 
-    def sampling_candidates(self, n_rec: int, n_nys: int):
+    def sampling_candidates(self, n_rec: int, n_nys: int,
+                            verbose: bool = False):
         """The candidate pipeline of every non-dataset label (the JAX
         package's fused_sampling.py:_cont_branches, shared by its uniform,
         WKDE, Gaussian, binary and spec-driven discrete pipelines): a pool
@@ -199,7 +202,9 @@ class EmpiricalSampler(RecombinationSampler):
 
         Host reads: the weight-health branch and one count a refill round
         (self.last_reads); the JAX program reads nothing, but its host
-        reads the Uniform/Gaussian -> WKDE switch once."""
+        reads the Uniform/Gaussian -> WKDE switch once. `verbose` is the
+        JAX signature's, where it picks the staged path over the fused one;
+        the port has one pipeline, so it changes nothing."""
         if n_rec <= n_nys:
             raise ValueError(f"n_rec={n_rec} must exceed n_nys={n_nys}")
         self.last_reads = 1

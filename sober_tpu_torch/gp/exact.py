@@ -147,8 +147,8 @@ def init_params(cfg: GPConfig, n_dims: int, dtype=torch.float32,
     )
 
 
-def mean_value(cfg: GPConfig, x: torch.Tensor,
-               mean_params: Optional[dict] = None) -> torch.Tensor:
+def mean_value(cfg: GPConfig, mean_params: Optional[dict],
+               x: torch.Tensor) -> torch.Tensor:
     """Prior mean m(x): zero (SOBER/_gp.py:18), or BOLFI's parabola
     sum_j a_j x_j^2 + b_j x_j + c (ParabolicMean.forward,
     SOBER/BOLFI/_gpytorch_bolfi_model.py:155-165)."""
@@ -244,7 +244,7 @@ def neg_mll(params: GPParams, x: torch.Tensor, y: torch.Tensor,
     """Negative (MAP) marginal log likelihood per datum, as gpytorch's
     ExactMarginalLogLikelihood. `mask` marks real rows of a padded buffer."""
     kernel, noise = materialize(params, cfg)
-    resid = y - mean_value(cfg, x, params.mean_params)
+    resid = y - mean_value(cfg, params.mean_params, x)
     if mask is not None:
         resid = resid * mask
         n = torch.sum(mask)
@@ -424,7 +424,7 @@ def build_state(params: GPParams, x: torch.Tensor, y_raw: torch.Tensor,
     y = (y_raw - y_mean) / y_std
     params = _detached(params)
     kernel, noise = materialize(params, cfg)
-    resid = y - mean_value(cfg, x, params.mean_params)
+    resid = y - mean_value(cfg, params.mean_params, x)
     if mask is not None:
         resid = resid * mask
         y = y * mask
@@ -487,7 +487,7 @@ def posterior_mean_var(state: GPState, xq: torch.Tensor,
     kqx = state.kernel.gram(xq, state.x)                  # (m, n)
     if state.mask is not None:
         kqx = kqx * state.mask[None, :]
-    mean = mean_value(state.config, xq, state.mean_params) + kqx @ state.alpha
+    mean = mean_value(state.config, state.mean_params, xq) + kqx @ state.alpha
     if state.linv is not None:
         v = state.linv @ kqx.T                            # (n, m)
     else:
@@ -542,7 +542,7 @@ def posterior_mean(state: GPState, xq: torch.Tensor) -> torch.Tensor:
     kqx = state.kernel.gram(xq, state.x)
     if state.mask is not None:
         kqx = kqx * state.mask[None, :]
-    return mean_value(state.config, xq, state.mean_params) + kqx @ state.alpha
+    return mean_value(state.config, state.mean_params, xq) + kqx @ state.alpha
 
 
 def polish_posterior_mean(state: GPState, starts: torch.Tensor,

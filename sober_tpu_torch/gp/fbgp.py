@@ -312,6 +312,14 @@ def fitbo_mll_batch(thetas_log: torch.Tensor, x: torch.Tensor,
     return torch.where(ok & ok_f & torch.isfinite(mll), mll, EPS_LML)
 
 
+def fitbo_mll(theta_log: torch.Tensor, x: torch.Tensor, fobs: torch.Tensor,
+              eta: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The FITBO marginal log likelihood per datum of one log-space
+    hypersample (the counterpart of sober_tpu.gp.fbgp.fitbo_mll): the sweep
+    at a batch of one. Returns a scalar, EPS_LML where it is not finite."""
+    return fitbo_mll_batch(theta_log[None, :], x, fobs, eta, mask)[0]
+
+
 def _theta_map_of(model: FitboGP, hyperprior: RBFHyperPrior) -> torch.Tensor:
     """The base model's MAP hypers in the hyperprior's layout (noise,
     lengthscale block, outputscale), with the ARD width checked."""
@@ -583,23 +591,36 @@ class FullyBayesianGP:
         obj.w_qd, obj.Theta_qd, obj._cache = w_qd, theta_qd, cache
         return obj
 
-    def batch_predict(self, x_test: torch.Tensor):
-        """(q, m) f-space posterior mean and variance of each chain
-        (fitbo_predict, SOBER/FBGP/_fully_Bayesian_gp.py:262-323): one RBF
-        launch a chain for K(x, X_obs), then one batched matmul with the
-        cached L^-1 for all the chains' variance reductions."""
-        theta = self.Theta_qd
+    def fitbo_predict(self, x_test: torch.Tensor, theta: torch.Tensor,
+                      linv: torch.Tensor, alpha: torch.Tensor):
+        """The f-space posterior mean and variance at x_test of one chain
+        (theta (p,), linv (n, n), alpha (n,); returns (m,) each) or of a
+        stack of chains (theta (q, p), linv (q, n, n), alpha (q, n); returns
+        (q, m) each) (fitbo_predict, SOBER/FBGP/_fully_Bayesian_gp.py:
+        262-289). `linv` is the chain's cached L^-1, so the variance
+        reduction is one matmul; K(x, X_obs) is one RBF launch a chain."""
+        one = theta.dim() == 1
+        if one:
+            theta, linv, alpha = theta[None], linv[None], alpha[None]
         eta_h, noise, os_ = theta[:, 0], theta[:, 1], theta[:, -1]
         kqx = _chain_grams(theta, x_test, self.Xobs)       # (q, m, n)
         if self.mask is not None:
             kqx = kqx * self.mask
-        mu_g = (kqx @ self._cache.alpha[:, :, None])[:, :, 0]
-        v = self._cache.linv @ kqx.mT                      # (q, n, m)
+        mu_g = (kqx @ alpha[:, :, None])[:, :, 0]
+        v = linv @ kqx.mT                                  # (q, n, m)
         var_g = (torch.clamp_min(os_[:, None] - torch.sum(v * v, dim=1), 0.0)
                  + noise[:, None])
         mu_f = eta_h[:, None] - 0.5 * (mu_g ** 2 + var_g)
         var_f = torch.clamp_min(mu_g * var_g * mu_g + 0.5 * var_g ** 2, 0.0)
-        return mu_f, var_f
+        return (mu_f[0], var_f[0]) if one else (mu_f, var_f)
+
+    def batch_predict(self, x_test: torch.Tensor):
+        """(q, m) f-space posterior mean and variance of each chain
+        (SOBER/FBGP/_fully_Bayesian_gp.py:307-323): fitbo_predict over the
+        stack of chains, with one batched matmul for all the chains'
+        variance reductions."""
+        return self.fitbo_predict(x_test, self.Theta_qd, self._cache.linv,
+                                  self._cache.alpha)
 
     def marginal_predict(self, x_test):
         """(SOBER/FBGP/_fully_Bayesian_gp.py:325-339)"""

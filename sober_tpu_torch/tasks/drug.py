@@ -45,6 +45,16 @@ def _ngram_fingerprints(smiles_list, n_lo: int = 1,
     return out
 
 
+def fingerprint_route() -> str:
+    """Which fingerprints featurise_smiles makes here: "rdkit" (Morgan) when
+    RDKit is importable, else "ngram"."""
+    try:
+        import rdkit.Chem.AllChem  # noqa: F401
+    except ImportError:
+        return "ngram"
+    return "rdkit"
+
+
 def featurise_smiles(smiles_list) -> np.ndarray:
     fps = _morgan_fingerprints(smiles_list)
     return _ngram_fingerprints(smiles_list) if fps is None else fps

@@ -2,6 +2,7 @@
 package, on the CPU, where every kernel wrapper takes its plain PyTorch
 reference. The kernels themselves are tested on the card by
 tests/test_torch_cuda.py."""
+import os
 import subprocess
 import sys
 
@@ -35,6 +36,23 @@ def test_import_without_jax():
             "assert not any(m == 'jax' or m.startswith('jax.') or m == 'sober_tpu' "
             "or m.startswith('sober_tpu.') for m in sys.modules), 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True)
+
+
+def test_scripts_import_without_jax():
+    """Every module of examples_torch/, tutorials_torch/ and
+    tools/acceptance_torch.py imports, and none of them imports jax, the
+    JAX package or the JAX examples."""
+    code = ("import glob, importlib.util, sys; "
+            "paths = sorted(glob.glob('examples_torch/*.py') + glob.glob('tutorials_torch/*.py')"
+            " + ['tools/acceptance_torch.py']); "
+            "assert len(paths) == 25, paths; "
+            "specs = [importlib.util.spec_from_file_location('m%d' % i, p) "
+            "for i, p in enumerate(paths)]; "
+            "[s.loader.exec_module(importlib.util.module_from_spec(s)) for s in specs]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'sober_tpu', "
+            "'examples')]; assert not bad, bad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root)
 
 
 # ----------------------------------------------------------------------------
