@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Twelve paths. The first is one exact-GP batch-BO iteration on a continuous
+Thirteen paths. The first is one exact-GP batch-BO iteration on a continuous
 domain: a warm-started MAP refit of the GP hypers, the posterior cache, the
 incumbent eta, and the fused acquisition (pi weights, Nystrom features, the
 halving tree of Caratheodory eliminations). The second is one
@@ -31,7 +31,12 @@ is the inverse model on the ECM spectrum (an ICM multitask GP trained on
 SOBER-chosen simulations), with the reference-name surface (compat). The
 twelfth is the user entry points: every script of examples_torch/ and
 tutorials_torch/ but svm through its main(), and tools/acceptance_torch.py's
-Shekel task at the reference config. The script
+Shekel task at the reference config. The thirteenth is the device mesh
+(sober_tpu_torch.parallel): sharded_acquisition at 200k/100,
+examples_torch/multichip.py's Sober(mesh=...) loop under both schedules, a
+gspmd screening batch and the FBGP's chains sharded, on logical shards of
+cuda:0 and, where the machine has several cards, over the cards. The
+script
 
   0. requires a CUDA device and prints it (name and power limit from
      nvidia-smi), the torch and CUDA versions;
@@ -110,8 +115,17 @@ Shekel task at the reference config. The script
      launches per script), then tools/acceptance_torch.py's Shekel seed 0
      at the reference config for 15 iterations beside the JAX package's
      row, no gate (phase acceptance_shekel);
- 21. holds the RBF, CAR, Tanimoto and bit-pack kernels at every shape the
-     screening iteration and phases 9-20 launched, the Tanimoto ones at
+ 21. runs the mesh phases (and each over the real cards too where
+     torch.cuda.device_count() > 1): sharded_acquisition at 200k/100 on 8
+     shards and on one beside fused_acquisition, each batch checked, the
+     one-shard batch equal to the unsharded one bit for bit (phase
+     mesh_acquisition); examples_torch/multichip.py's main per schedule on
+     8 shards, every batch checked (mesh_loop); gspmd next_batch on
+     malaria's 18,924 rows over 4 shards, its rows equal to mesh=None's
+     (mesh_dataset); the 50 chains of the FBGP-step config over 5 "hyper"
+     shards within 1e-4 of marginal_predict (mesh_fbgp);
+ 22. holds the RBF, CAR, Tanimoto and bit-pack kernels at every shape the
+     screening iteration and phases 9-21 launched, the Tanimoto ones at
      the bit densities they had there;
 
 and prints one JSON line per phase, the kernels' summary, the card, and as
@@ -2873,6 +2887,238 @@ def phase_acceptance_shekel(counts: dict) -> None:
          seconds=time.perf_counter() - t0)
 
 
+def device_meshes(n_shards: int, axis: str = "cand", divides: int | None = None):
+    """The meshes a mesh phase runs on: n_shards logical shards on cuda:0,
+    and, where the machine has more than one card, a mesh over the real
+    cards (as many as divide `divides`, at least two)."""
+    from sober_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    meshes = [(f"{n_shards} shards on cuda:0", make_mesh(n_shards, (axis,),
+                                                         devices=[dev] * n_shards))]
+    n = torch.cuda.device_count()
+    while divides is not None and n > 1 and divides % n:
+        n -= 1
+    if n > 1:
+        meshes.append((f"{n} cards", make_mesh(n, (axis,))))
+    return meshes
+
+
+def real_cards(ran: bool) -> str:
+    """What a mesh phase's line says of the run over the real cards."""
+    return "run" if ran else f"not run: {torch.cuda.device_count()} card"
+
+
+def phase_mesh_acquisition(counts: dict) -> None:
+    """sharded_acquisition at the 200k/100 config (bench.py's pool of
+    200,000 x d = 4, n_nys 500, batch 100, one fitted GP) on an 8-shard
+    mesh on cuda:0 and on a one-shard mesh (and over the real cards where
+    there are several), beside the unsharded fused_acquisition on the same
+    inputs: each batch checked (weights >= 0 summing to 1, indices distinct,
+    moment error below 5e-3), the moments' distance from the unsharded
+    batch's, the one-shard mesh equal to the unsharded path bit for bit,
+    and the median of ITERS runs of each after a sync with its launches."""
+    from sober_tpu_torch.core.fused import fused_acquisition
+    from sober_tpu_torch.core.rchq import nystrom_basis
+    from sober_tpu_torch.gp.exact import (GPConfig, build_state, fit_params,
+                                          posterior_max_mean, predictive_covariance)
+    from sober_tpu_torch.parallel import make_mesh, sharded_acquisition
+    from sober_tpu_torch.utils.linalg import symmetrize
+
+    name, n_cand, batch, n_nys, d, n_obs, _ = CONFIGS[1]
+    dev = torch.device("cuda")
+    x_obs, y_obs, x_cand, x_nys, pdf = make_problem(n_cand, n_nys, batch, d, n_obs, dev)
+    cfg = GPConfig(fit_iters=100)
+    params = fit_params(x_obs, (y_obs - y_obs.mean()) / y_obs.std(), cfg)
+    state = build_state(params, x_obs, y_obs, cfg)
+    eta = posterior_max_mean(state)
+    kernel = lambda a, b: predictive_covariance(state, a, b)
+    runs = [("unsharded", lambda: fused_acquisition(state, eta, x_cand, x_nys, pdf, batch))]
+    for label, mesh in (device_meshes(8, divides=n_cand)
+                        + [("1 shard", make_mesh(1, devices=[dev]))]):
+        runs.append((label, lambda mesh=mesh: sharded_acquisition(
+            mesh, state, eta, x_cand, x_nys, pdf, batch)))
+    zero_counts()
+    rows, path, batches = {}, {}, {}
+    for label, run in runs:
+        launches, times = {}, []
+        for it in range(1 + ITERS):
+            with counted(launches if it else {}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                idx, w, weights = run()
+                torch.cuda.synchronize()
+            if it:
+                times.append(1e3 * (time.perf_counter() - t0))
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        weights = weights if isinstance(weights, torch.Tensor) else weights.gather()
+        check_batch(idx, w, n_cand, batch, f"mesh_acquisition {label}")
+        mom = moment_error(kernel, x_cand, x_nys, weights, idx, w, batch)
+        require(mom < 5e-3, f"mesh_acquisition {label}: moment error {mom}")
+        batches[label] = (idx, w)
+        rows[label] = {"ms_median": statistics.median(times), "ms": times,
+                       "launches_per_run": {k: v / ITERS for k, v in launches.items()},
+                       "moment_err": mom, "w_sum": float(w.sum())}
+    idx_f, w_f = batches["unsharded"]
+    idx_1, w_1 = batches["1 shard"]
+    require(torch.equal(idx_1, idx_f) and torch.equal(w_1, w_f),
+            "mesh_acquisition: the one-shard mesh differs from the unsharded path")
+    # the batches' moments on the unsharded path's normalized strip
+    u = nystrom_basis(symmetrize(torch.nan_to_num(kernel(x_nys, x_nys))), batch - 1)
+    phi = u @ kernel(x_nys, x_cand)
+    phi = phi / torch.clamp_min(phi.abs().max(), 1e-30)
+    want = phi[:, idx_f] @ w_f
+    for label, (idx, w) in batches.items():
+        rows[label]["moments_vs_unsharded"] = float((phi[:, idx] @ w - want).abs().max())
+    add_counts(counts, path, "mesh_acquisition")
+    emit(phase="mesh_acquisition", config=name, n_cand=n_cand, n_nys=n_nys, batch=batch,
+         d=d, device_count=torch.cuda.device_count(), runs=rows, launches_on_path=path,
+         real_cards=real_cards(len(runs) > 3))
+
+
+def phase_mesh_loop(counts: dict) -> None:
+    """examples_torch/multichip.py's main at its own config (Branin,
+    n_init 10, batch 30, n_rec 16,384, n_nys 128, 5 iterations) once per
+    schedule on an 8-shard mesh on cuda:0 (and over every card where there
+    are several): every batch checked (inside the box, recombination's
+    indices distinct, weights >= 0 summing to 1, moment error below 5e-3);
+    the bests and the acquisition seconds of each iteration."""
+    rows, path = {}, {}
+    zero_counts()
+    for schedule in ("gspmd", "blockwise"):
+        for label, kwargs in ([("8 shards on cuda:0", dict(device="cuda", n_devices=8))]
+                              + ([("every card", {})] if torch.cuda.device_count() > 1 else [])):
+            mod = load_script("examples_torch/multichip.py")
+            made, moms = [], []
+            real_sober, real_setup = mod.Sober, mod.setup_branin
+
+            def sober(*args, **kw):
+                s = real_sober(*args, **kw)
+                made.append((s, capture_recombination(s)))
+                return s
+
+            def setup(*args, **kw):
+                prior, fn = real_setup(*args, **kw)
+                lo, hi = prior.bounds
+
+                def checked(x):
+                    if made:                    # a batch of next_batch
+                        s, seen = made[-1]
+                        moms.append(check_continuous_batch(
+                            s, seen, x, lo, hi, x.shape[0],
+                            f"mesh_loop {schedule} {label}")["moment_err"])
+                    return fn(x)
+                return prior, checked
+
+            mod.Sober, mod.setup_branin = sober, setup
+            launches = {}
+            t0 = time.perf_counter()
+            with counted(launches), contextlib.redirect_stdout(io.StringIO()):
+                history = mod.main(schedule=schedule, **kwargs)
+            torch.cuda.synchronize()
+            require(len(moms) == len(history) == 5, f"mesh_loop: {len(moms)} batches checked")
+            for k, v in launches.items():
+                path[k] = path.get(k, 0) + v
+            rows[f"{schedule}, {label}"] = {
+                "best_per_iter": [b for b, _ in history],
+                "acq_s_per_iter": [s for _, s in history], "moment_err_max": max(moms),
+                "mesh": made[0][0].mesh.shape, "schedule": made[0][0].schedule,
+                "seconds": time.perf_counter() - t0,
+                "launches": launches}
+    add_counts(counts, path, "mesh_loop")
+    emit(phase="mesh_loop", device_count=torch.cuda.device_count(), runs=rows,
+         launches_on_path=path, real_cards=real_cards(len(rows) > 2))
+
+
+def phase_mesh_dataset(counts: dict) -> None:
+    """Sober.next_batch(2000, 500, 100) with the gspmd schedule on malaria's
+    18,924 rows (examples_torch/malaria.py's pool: a Tanimoto GP on 100
+    drawn rows, the weighted predictive covariance) over a 4-shard mesh on
+    cuda:0 (and over the real cards where there are several): the indices
+    must equal mesh=None's; the median of 3 calls of each after a sync."""
+    from sober_tpu_torch import Sober, fit_tanimoto_gp
+    from sober_tpu_torch.tasks import setup_malaria
+    from sober_tpu_torch.utils.prng import KeyRing
+
+    dev = torch.device("cuda")
+    prior = setup_malaria(device=dev)
+    x_obs, y_obs = prior.sample(KeyRing(0, device=dev).next(), 100)
+    model = fit_tanimoto_gp(x_obs, y_obs, bucket=128)
+    zero_counts()
+    rows, path, want = {}, {}, None
+    for label, mesh in [("unsharded", None)] + device_meshes(4, divides=prior.n_total):
+        launches, times = {}, []
+        for it in range(4):
+            sober = Sober(prior, model, seed=0, kernel_type="weighted_predictive_covariance",
+                          mesh=mesh)
+            with counted(launches if it else {}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                idx, xb = sober.next_batch(2000, 500, 100)
+                torch.cuda.synchronize()
+            if it:
+                times.append(1e3 * (time.perf_counter() - t0))
+        want = idx if want is None else want
+        require(torch.equal(idx, want), f"mesh_dataset {label}: indices differ from mesh=None's")
+        require(len(set(idx.tolist())) == 100 and bool(prior.available[idx].all()),
+                f"mesh_dataset {label}: indices distinct and available")
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        rows[label] = {"next_batch_ms_median": statistics.median(times), "ms": times,
+                       "launches_per_call": {k: v / 3 for k, v in launches.items()}}
+    # a Tanimoto GP: no RBF Gram on this path
+    for name in ("car_eliminate", "tanimoto_gram", "pack_bits"):
+        require(path.get(name, 0) > 0, f"mesh_dataset: {name} never launched")
+        counts[name] = counts.get(name, 0) + path[name]
+    emit(phase="mesh_dataset", n_total=prior.n_total, indices_equal=True,
+         device_count=torch.cuda.device_count(), runs=rows, launches_on_path=path,
+         real_cards=real_cards(len(rows) > 2))
+
+
+def phase_mesh_fbgp() -> None:
+    """sharded_fbgp_batch_predict over the 50 chains of the FBGP-step config
+    (bench.py:230-261: the refit of bench's 100 points at d = 3, 1000
+    hypersamples, n_nys 100) at 8,192 query points on a 5-shard "hyper" mesh
+    on cuda:0 (and over the real cards where there are several), held to
+    marginal_predict within 1e-4; the median of ITERS calls of each."""
+    from sober_tpu_torch.gp.fbgp import FitboGP, RBFHyperPrior, fbgp_refit
+    from sober_tpu_torch.parallel import sharded_fbgp_batch_predict
+
+    n_obs, d, n_hypers, n_nys_qd, n_qd, n_rec = FBGP[:6]
+    dev = torch.device("cuda")
+    x, y = fbgp_problem(dev)
+    model = fbgp_refit(FitboGP(x, torch.as_tensor(y, device=dev)), RBFHyperPrior(device=dev),
+                       n_hypers=n_hypers, n_nys=n_nys_qd, n_qd=n_qd,
+                       gen=torch.Generator(device=dev).manual_seed(0))
+    xq = torch.as_tensor(np.random.default_rng(1).uniform(-1, 1, (n_rec, d)),
+                         dtype=torch.float32, device=dev)
+    rows = {}
+    runs = [("marginal_predict", lambda: model.marginal_predict(xq))]
+    runs += [(label, lambda mesh=mesh: sharded_fbgp_batch_predict(mesh, model, xq))
+             for label, mesh in device_meshes(5, "hyper", divides=n_qd)]
+    for label, run in runs:
+        times = []
+        for it in range(1 + ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mu, var = run()
+            torch.cuda.synchronize()
+            if it:
+                times.append(1e3 * (time.perf_counter() - t0))
+        rows[label] = {"ms_median": statistics.median(times), "mu": mu, "var": var}
+    want_mu, want_var = rows["marginal_predict"].pop("mu"), rows["marginal_predict"].pop("var")
+    for label, row in rows.items():
+        if "mu" in row:
+            row["mu_err"] = float((row.pop("mu") - want_mu).abs().max())
+            row["var_err"] = float((row.pop("var") - want_var).abs().max())
+            require(row["mu_err"] <= 1e-4 and row["var_err"] <= 1e-4,
+                    f"mesh_fbgp {label}: {row['mu_err']}, {row['var_err']}")
+    emit(phase="mesh_fbgp", n_qd=n_qd, n_query=n_rec, tol=1e-4,
+         device_count=torch.cuda.device_count(), runs=rows,
+         real_cards=real_cards(len(rows) > 2))
+
+
 def main() -> None:
     seconds = {}
 
@@ -2924,6 +3170,10 @@ def main() -> None:
     timed(phase_compat_surface, counts)
     timed(phase_torch_scripts, counts)
     timed(phase_acceptance_shekel, counts)
+    timed(phase_mesh_acquisition, counts)
+    timed(phase_mesh_loop, counts)
+    timed(phase_mesh_dataset, counts)
+    timed(phase_mesh_fbgp)
     timed(phase_path_shapes)
     emit(phase="phase_seconds", seconds=seconds, total=sum(seconds.values()))
     kernels = []

@@ -28,7 +28,7 @@ from ..ops.kmeans import kmeans_resampling
 from ..priors.continuous import Uniform
 from ..utils.weights import (cleansing_weights, deweighted_resampling,
                              weighted_resampling)
-from .rchq import _top, recombination
+from .rchq import _top
 
 def adaptive_pruning(weights: torch.Tensor, n_rec: int, n_nys: int,
                      thresh: float):
@@ -64,19 +64,18 @@ def dataset_candidates(w_all: torch.Tensor, x_all: torch.Tensor,
 
 def fused_iteration_dataset(pi: Callable, x_all: torch.Tensor,
                             avail_mask: torch.Tensor, gen: torch.Generator,
-                            kernel: Callable, *, n_rec: int, n_nys: int,
-                            thresh: float, batch: int, prune: bool,
-                            calc_obj: Optional[Callable] = None):
-    """One dataset-domain acquisition. pi: X -> (N,) weights; kernel: the
-    recombination Gram; calc_obj: optional X -> (N,) objective to push.
+                            recombine: Callable, *, n_rec: int, n_nys: int,
+                            thresh: float, batch: int, prune: bool):
+    """One dataset-domain acquisition. pi: X -> (N,) weights; recombine:
+    (x_cand, x_nys, weights, batch) -> (idx, w), the kernel recombination
+    (RecombinationSampler.sampling_recombination).
 
     Returns (idx_global, x_batch, w_rchq, n_pos): the batch's dataset rows,
     features and quadrature weights, and the count of positive pool weights
     (a device scalar)."""
     idx_sampled, x_cand, x_nys, w = dataset_candidates(
         pi(x_all), x_all, avail_mask, gen, n_rec, n_nys, thresh, prune)
-    idx, w_rchq = recombination(x_cand, x_nys, batch, kernel,
-                                init_weights=w, calc_obj=calc_obj)
+    idx, w_rchq = recombine(x_cand, x_nys, w, batch)
     return idx_sampled[idx], x_cand[idx], w_rchq, torch.sum(w > 0)
 
 
@@ -103,23 +102,28 @@ def _continuous_draw(prior, gen: torch.Generator, n: int,
     return prior.sample(gen, n)
 
 
-def draw(prior, label: str, gen: torch.Generator, n: int, redraw: bool = False):
+def draw(prior, label: str, gen: torch.Generator, n: int, redraw: bool = False,
+         sweep: Optional[Callable] = None):
     """A pool of n rows from the proposal of domain `label`: (x, xi, pdf).
     x holds the values; xi, for the categorical labels, the same rows with
     category indices (as floats) in the discrete block, else None; pdf the
     proposal density. A discrete block's density is the exponential of
     the summed log densities, continuous block included, as the JAX
     pipeline computes it (sober_tpu/core/fused_sampling.py:_disc_logpdf
-    and _discrete_machinery): it underflows to 0 where that one does."""
+    and _discrete_machinery): it underflows to 0 where that one does.
+    sweep: (fn, x) -> fn(x), how a continuous density goes over the pool
+    (shard by shard on a mesh: RecombinationSampler._sweep); the elementwise
+    discrete densities run whole."""
+    sweep = (lambda fn, x: fn(x)) if sweep is None else sweep
     if label == "continuous":
         x = _continuous_draw(prior, gen, n, redraw)
-        return x, None, prior.pdf(x)
+        return x, None, sweep(prior.pdf, x)
     if label in ("binary", "categorical"):
         disc, xc, lp = prior, None, 0.0
     else:
         disc = prior.prior_disc
         xc = _continuous_draw(prior.prior_cont, gen, n, redraw)
-        lp = prior.prior_cont.logpdf(xc)
+        lp = sweep(prior.prior_cont.logpdf, xc)
     if label.endswith("categorical"):
         xd, idx = disc.sample_both(gen, n)
         lp = lp + disc.logpdf_indices(idx)

@@ -16,6 +16,7 @@ to fp32 tolerance (moment matching).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -262,8 +263,8 @@ def local_reduce(phi: torch.Tensor, mu: torch.Tensor, num_pts: int,
 def recombination(pts_rec: torch.Tensor, pts_nys: torch.Tensor, num_pts: int,
                   kernel: Callable, init_weights: Optional[torch.Tensor] = None,
                   calc_obj: Optional[Callable] = None,
-                  extra_test_rows: Optional[torch.Tensor] = None
-                  ) -> RecombinationResult:
+                  extra_test_rows: Optional[torch.Tensor] = None,
+                  mesh=None) -> RecombinationResult:
     """Sparsify a weighted candidate pool to `num_pts` quadrature points.
 
     pts_rec (N, d) candidate pool; pts_nys (n_nys, d) Nystrom subset;
@@ -272,8 +273,12 @@ def recombination(pts_rec: torch.Tensor, pts_nys: torch.Tensor, num_pts: int,
     X -> (N,) acquisition values to maximize under the quadrature
     constraints; extra_test_rows optional (k, N) function values matched
     exactly beside the Nystrom eigenfunctions (k eigenfunction slots are
-    given up for them). Returns RecombinationResult(idx (s,), w (s,));
-    trailing weights may be zero.
+    given up for them). mesh: an optional parallel.mesh.Mesh with a "cand"
+    axis; the strip K(X_nys, pool) is then formed shard by shard, each on
+    its device, and gathered on the mesh's first (parallel.mesh.sweep; a
+    pool the mesh does not divide is formed whole there), the rest as
+    without one. Returns RecombinationResult(idx (s,), w (s,)); trailing
+    weights may be zero.
     """
     n_pool = pts_rec.shape[0]
     n_extra = 0 if extra_test_rows is None else extra_test_rows.shape[0]
@@ -292,7 +297,13 @@ def recombination(pts_rec: torch.Tensor, pts_nys: torch.Tensor, num_pts: int,
     # symmetrize + NaN-scrub suffices
     k_nys = symmetrize(torch.nan_to_num(kernel(pts_nys, pts_nys)))
     u = nystrom_basis(k_nys, n_test)                       # (n_test, n_nys)
-    phi = u @ kernel(pts_nys, pts_rec)                     # (n_test, N)
+    if mesh is None:
+        k_strip = kernel(pts_nys, pts_rec)                 # (n_nys, N)
+    else:
+        from ..parallel.mesh import sweep
+
+        k_strip = sweep(mesh, functools.partial(kernel, pts_nys), pts_rec, dim=1)
+    phi = u @ k_strip                                      # (n_test, N)
     # one GLOBAL scale lifts a nearly degenerate kernel's rows next to the
     # O(1) mass column while keeping the eigenvalue-weighted priority
     phi = phi / torch.clamp_min(torch.max(torch.abs(phi)), 1e-30)

@@ -10,15 +10,36 @@ refit, refill draws and a Nystrom subset, as one eager pipeline,
 `sampling_candidates`, built from `sampling` (or `categorical_sampling`),
 `recursive_sampling`, `update_prior` and `_select_nys`. `MixtureSampler`
 draws from a Sober's learned proposal mixed with the prior (BASQ's
-posterior sampling). The JAX package's `mesh`/`schedule` arguments wait
-for ROADMAP.md queue 1, item 16.
+posterior sampling).
+
+Multi-device (`mesh`, a parallel.mesh.Mesh with a "cand" axis whose first
+device is the prior's): the pool-axis sweeps run shard by shard, each on
+its shard's device, and their results are gathered on the first. Two
+schedules, as in the JAX package:
+
+  * "gspmd" (default): a placement decision, with the results of
+    mesh=None. Swept per shard: pi over the pool (continuous and dataset),
+    the proposal's density over the pool and recombination's strip
+    K(X_nys, pool); everything else (the draws, from the same generators,
+    the proposal update, the Nystrom subset, the halving tree) runs on the
+    first device. A pool the mesh does not divide is swept whole there, as
+    GSPMD leaves an uneven pool unsharded.
+  * "blockwise": the same sweeps, and recombination through
+    parallel.sharded.sharded_recombination (per-shard trees, only the
+    survivors merged). A pool the mesh does not divide raises ValueError.
+
+The JAX package warns on blockwise because its fused one-program pipelines
+are gspmd-only; the port has one eager pipeline for both schedules, so
+there is nothing to warn about.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
+from ..parallel.mesh import same_device, sweep
 from ..priors.base import BasePrior
 from ..priors.continuous import Gaussian, TruncatedGaussian, Uniform
 from ..priors.discrete import (BinaryPrior, CategoricalPrior,
@@ -38,32 +59,57 @@ LABELS = ("dataset", "continuous", "binary", "categorical", "mixedbinary",
 
 # dataset-domain pruning threshold (SOBER/_sampler.py:325-349)
 PRUNE_THRESH = 1e-3
+SCHEDULES = ("gspmd", "blockwise")
 
 
 class RecombinationSampler:
-    """Kernel recombination step (SOBER/_sampler.py:11-59)."""
+    """Kernel recombination step (SOBER/_sampler.py:11-59). mesh and
+    schedule: see the module's docstring."""
 
     def __init__(self, kernel: Callable, thresh: int = 5, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None, schedule: str = "gspmd"):
+        if schedule not in SCHEDULES:
+            raise ValueError('schedule must be "gspmd" or "blockwise"')
         self.kernel = kernel
         self.thresh = thresh
         self.keys = KeyRing(seed, device=device)
+        if mesh is not None and not same_device(mesh.axis_devices("cand")[0],
+                                                self.keys.device):
+            raise ValueError(
+                f"the mesh's first device {mesh.axis_devices('cand')[0]} must "
+                f"be the prior's, {self.keys.device}")
+        self.mesh = mesh
+        self.schedule = schedule
         # count of positive pool weights of the last iteration (a device
         # scalar, read lazily) and which path produced the batch
         self.last_npos = None
         self.last_path = None
 
+    def _sweep(self, fn: Callable, x: torch.Tensor) -> torch.Tensor:
+        """fn(x) over a pool: shard by shard on the mesh (parallel.mesh.sweep;
+        blockwise requires the mesh to divide the pool), whole without one."""
+        if self.mesh is None:
+            return fn(x)
+        return sweep(self.mesh, fn, x, strict=self.schedule == "blockwise")
+
     def sampling_recombination(self, x_cand, x_nys, weights, batch_size,
                                calc_obj=None):
+        if self.mesh is not None and self.schedule == "blockwise":
+            from ..parallel.sharded import sharded_recombination
+
+            return sharded_recombination(self.mesh, self.kernel, x_cand, x_nys,
+                                         weights, batch_size, calc_obj=calc_obj)
         return recombination(x_cand, x_nys, batch_size, self.kernel,
-                             init_weights=weights, calc_obj=calc_obj)
+                             init_weights=weights, calc_obj=calc_obj,
+                             mesh=self.mesh)
 
 
 class EmpiricalSampler(RecombinationSampler):
     """pi-importance sampling pipeline (SOBER/_sampler.py:61-382)."""
 
     def __init__(self, prior: BasePrior, pi, kernel: Callable,
-                 thresh: int = 5, label: str = "mixedbinary", seed: int = 0):
+                 thresh: int = 5, label: str = "mixedbinary", seed: int = 0,
+                 mesh=None, schedule: str = "gspmd"):
         if label == "continuous" and not isinstance(prior, CONTINUOUS):
             raise TypeError(
                 f"continuous prior {type(prior).__name__}: the proposals are "
@@ -71,7 +117,8 @@ class EmpiricalSampler(RecombinationSampler):
         if label not in LABELS:
             raise ValueError(f"domain label {label!r} is not one of {LABELS}")
         super().__init__(kernel, thresh=thresh, seed=seed,
-                         device=getattr(prior, "device", None))
+                         device=getattr(prior, "device", None), mesh=mesh,
+                         schedule=schedule)
         self.thresh_initial = thresh
         self.prior = prior
         self.prior_initial = prior
@@ -136,15 +183,21 @@ class EmpiricalSampler(RecombinationSampler):
         prior's Uniform block) is pseudo-random, as the JAX pipeline's
         refill draws are; only the first draw follows (and advances) its
         Sobol sequence."""
-        x, _, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw)
-        return x, fs.pi_weights(self.pi, x, pdf)
+        x, _, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw,
+                            self._sweep)
+        return x, fs.pi_weights(self._swept_pi, x, pdf)
 
     def categorical_sampling(self, n_rec: int, redraw: bool = False):
         """A pool draw that also returns the rows with category indices in
         the discrete block, which the categorical update reads
         (SOBER/_sampler.py:189-203): (X, X_indices, w)."""
-        x, xi, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw)
-        return x, xi, fs.pi_weights(self.pi, x, pdf)
+        x, xi, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw,
+                             self._sweep)
+        return x, xi, fs.pi_weights(self._swept_pi, x, pdf)
+
+    def _swept_pi(self, x: torch.Tensor) -> torch.Tensor:
+        """pi over a pool, shard by shard on a mesh."""
+        return self._sweep(self.pi, x)
 
     def _draw(self, n_rec: int, redraw: bool = False):
         """A pool as the refill carries it: for the categorical labels the
@@ -236,7 +289,7 @@ class EmpiricalSampler(RecombinationSampler):
             raise ValueError(f"n_rec={n_rec} must exceed n_nys={n_nys}")
         x_all = self.prior.available_candidates()
         return fs.dataset_candidates(
-            self.pi(x_all), x_all, self.prior.available_mask(),
+            self._swept_pi(x_all), x_all, self.prior.available_mask(),
             self.keys.next(), n_rec, n_nys, PRUNE_THRESH, dataset_pruning)
 
     def _fused_dataset_iteration(self, n_rec: int, n_nys: int, batch: int,
@@ -245,10 +298,11 @@ class EmpiricalSampler(RecombinationSampler):
         (idx_global, x_batch, w_rchq)."""
         idx_global, x_batch, w_rchq, self.last_npos = (
             fs.fused_iteration_dataset(
-                self.pi, self.prior.available_candidates(),
-                self.prior.available_mask(), self.keys.next(), self.kernel,
+                self._swept_pi, self.prior.available_candidates(),
+                self.prior.available_mask(), self.keys.next(),
+                functools.partial(self.sampling_recombination, calc_obj=calc_obj),
                 n_rec=n_rec, n_nys=n_nys, thresh=PRUNE_THRESH, batch=batch,
-                prune=prune, calc_obj=calc_obj))
+                prune=prune))
         return idx_global, x_batch, w_rchq
 
 

@@ -31,7 +31,8 @@ class Sober(EmpiricalSampler):
     def __init__(self, prior, model, thresh: int = 5,
                  sampler_type: str = "lfi",
                  kernel_type: str = "predictive_covariance",
-                 dataset_pruning: bool = True, seed: int = 0):
+                 dataset_pruning: bool = True, seed: int = 0,
+                 mesh=None, schedule: str = "gspmd"):
         """(SOBER/_sober.py:9-39)
 
         Args:
@@ -48,6 +49,13 @@ class Sober(EmpiricalSampler):
                        "weighted_predictive_covariance" | "kernel"
           dataset_pruning: prune dataset candidate pools by pi weight
           seed: seeds the sampler's KeyRing
+          mesh: optional parallel.mesh.Mesh with a "cand" axis, its first
+                device the prior's: next_batch, step and step_fbgp sweep
+                their pools shard by shard (no reference analogue: the
+                reference is single-device)
+          schedule: "gspmd" (a placement decision, the results of
+                mesh=None) or "blockwise" (recombination by per-shard trees
+                and a merge of their survivors); see core/sampler.py
         """
         self.sampler_type = sampler_type
         self.kernel_type = kernel_type
@@ -60,7 +68,7 @@ class Sober(EmpiricalSampler):
         self.last_reset = False
         self.reset_count = 0
         super().__init__(prior, pi, kernel, thresh=thresh, label=prior.type,
-                         seed=seed)
+                         seed=seed, mesh=mesh, schedule=schedule)
 
     # -- model wiring --------------------------------------------------------
 
@@ -269,8 +277,11 @@ class Sober(EmpiricalSampler):
             idx_global, x_batch, w_rchq = self._fused_dataset_iteration(
                 n_rec, n_nys, batch_size, self.dataset_pruning,
                 calc_obj=calc_obj)
-            # the one host read of the flag the Tanimoto Grams' packs raise
-            check_fingerprints(self.prior.device)
+            # the one host read of the flag the Tanimoto Grams' packs raise,
+            # on each device that packed
+            for dev in ([self.prior.device] if self.mesh is None
+                        else set(self.mesh.devices.flat)):
+                check_fingerprints(dev)
             t2 = mark()
             self.last_timings = {"fused_iteration": t2 - t0}
         else:

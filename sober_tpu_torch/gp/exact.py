@@ -487,13 +487,20 @@ def posterior_mean_var(state: GPState, xq: torch.Tensor,
     kqx = state.kernel.gram(xq, state.x)                  # (m, n)
     if state.mask is not None:
         kqx = kqx * state.mask[None, :]
-    mean = mean_value(state.config, state.mean_params, xq) + kqx @ state.alpha
+    # one row a query point, each reduced along its own row: a row's sum
+    # does not depend on how many rows are predicted together, so a pool
+    # swept in shards gives the whole sweep's rows bit for bit (on the card
+    # the order of a column sum over (n, m), and cuBLAS's matrix-vector
+    # product, depend on m)
+    mean = (mean_value(state.config, state.mean_params, xq)
+            + torch.sum(kqx * state.alpha, dim=1))
     if state.linv is not None:
-        v = state.linv @ kqx.T                            # (n, m)
+        v = kqx @ state.linv.T                            # (m, n)
+        reduced = torch.sum(v * v, dim=1)
     else:
         v = torch.linalg.solve_triangular(state.chol, kqx.T, upper=False)
-    var = torch.clamp_min(state.kernel.diag(xq) - torch.sum(v * v, dim=0),
-                          1e-12)
+        reduced = torch.sum(v * v, dim=0)
+    var = torch.clamp_min(state.kernel.diag(xq) - reduced, 1e-12)
     if include_noise:
         var = var + state.noise
     return mean, var

@@ -196,12 +196,14 @@ def _launch(mu, big_n, row_mask, n_take: int, plan: CarPlan):
     mu_out = torch.empty_like(mu)
     elim = torch.empty_like(mu)
     lib = load_library()
-    rc = lib.sober_car_eliminate(
-        mu.data_ptr(), big_n.data_ptr(), row_mask.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), mu_out.data_ptr(),
-        elim.data_ptr(), batch, m, q, n_take,
-        0 if plan.variant == "l2" else plan.cluster,
-        torch.cuda.current_stream(mu.device).cuda_stream)
+    # the C side launches on the current device: make the operands' current
+    with torch.cuda.device(mu.device):
+        rc = lib.sober_car_eliminate(
+            mu.data_ptr(), big_n.data_ptr(), row_mask.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), mu_out.data_ptr(),
+            elim.data_ptr(), batch, m, q, n_take,
+            0 if plan.variant == "l2" else plan.cluster,
+            torch.cuda.current_stream(mu.device).cuda_stream)
     check(rc, f"car_eliminate ({plan.variant}, cluster {plan.cluster})")
     car_eliminate.launches += 1
     car_eliminate.variant_launches[plan.variant] += 1

@@ -122,10 +122,13 @@ def _launch(x: torch.Tensor, y: torch.Tensor, ls: torch.Tensor,
     if n == 0 or m == 0:
         return out
     lib = load_library()
-    rc = lib.sober_rbf_gram(
-        x.data_ptr(), y.data_ptr(), ls.data_ptr(), os_.data_ptr(),
-        out.data_ptr(), n, m, d, int(ls.numel() == d),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # the C side launches on the current device and keeps its occupancy
+    # per device: make the operands' device current
+    with torch.cuda.device(x.device):
+        rc = lib.sober_rbf_gram(
+            x.data_ptr(), y.data_ptr(), ls.data_ptr(), os_.data_ptr(),
+            out.data_ptr(), n, m, d, int(ls.numel() == d),
+            torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "rbf_gram")
     rbf_gram.launches += 1
     return out

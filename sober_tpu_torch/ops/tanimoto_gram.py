@@ -145,10 +145,12 @@ def pack_bits(x: torch.Tensor):
     counts = torch.empty((n,), dtype=torch.int32, device=x.device)
     if n == 0 or d == 0:
         return words, counts.zero_()
-    rc = load_library().sober_pack_bits(
-        x.data_ptr(), words.data_ptr(), counts.data_ptr(),
-        _flag(x.device).data_ptr(), n, d,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    flag = _flag(x.device)
+    # the C side launches on the current device: make the operands' current
+    with torch.cuda.device(x.device):
+        rc = load_library().sober_pack_bits(
+            x.data_ptr(), words.data_ptr(), counts.data_ptr(), flag.data_ptr(),
+            n, d, torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "pack_bits")
     pack_bits.launches += 1
     return words, counts
@@ -227,10 +229,13 @@ def _gram(xw, nx, yw, ny) -> torch.Tensor:
         return out
     if n_words == 0:
         return out.zero_()
-    rc = load_library().sober_tanimoto_gram(
-        xw.data_ptr(), yw.data_ptr(), nx.data_ptr(), ny.data_ptr(),
-        out.data_ptr(), n, m, n_words,
-        torch.cuda.current_stream(xw.device).cuda_stream)
+    # the C side launches on the current device and keeps its occupancy
+    # per device: make the operands' device current
+    with torch.cuda.device(xw.device):
+        rc = load_library().sober_tanimoto_gram(
+            xw.data_ptr(), yw.data_ptr(), nx.data_ptr(), ny.data_ptr(),
+            out.data_ptr(), n, m, n_words,
+            torch.cuda.current_stream(xw.device).cuda_stream)
     check(rc, "tanimoto_gram")
     tanimoto_gram_packed.launches += 1
     return out

@@ -559,3 +559,73 @@ def test_is_cuda_on_card(cuda):
     tm = compat.TensorManager()
     assert tm.is_cuda() and tm.rand(2, 8).device.type == "cuda"
     assert not compat.TensorManager(device="cpu").is_cuda()
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_operands_card(cuda):
+    """Each kernel on operands on the last visible card, launched while card
+    0 is current: the wrappers make the operands' card current around the
+    launch, so the C side launches there and reads that card's occupancy.
+    On a one-card machine the last card is cuda:0 and this only checks the
+    guard's launch."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    with torch.cuda.device(0):
+        p = {"lengthscale": t(0.8), "outputscale": t(1.3)}
+        x, y = t(rng.uniform(-1, 1, (300, 4))), t(rng.uniform(-1, 1, (2000, 4)))
+        gram = rbf_gram(p, x, y)
+        _, mu, mask, big_n, n_take, _ = _car_problem(200, 100, 200, dev)
+        k = reference_horizon(mu, big_n, mask, n_take)
+        mu_k, el_k = car_eliminate(mu, big_n, mask, k)
+        bx, by = (torch.as_tensor(_bits(rng, n, 2048), device=dev) for n in (130, 70))
+        words, counts = pack_bits(bx)
+        tan = tanimoto_similarity(bx, by)
+    torch.cuda.synchronize(dev)
+    assert gram.device == mu_k.device == words.device == tan.device == dev
+    assert float((gram - rbf_gram_reference(p, x, y)).abs().max()) <= 1.3e-5
+    mu_r, el_r = car_eliminate_reference(mu, big_n, mask, k)
+    assert torch.equal(el_k, el_r) and float((mu_k - mu_r).abs().max()) <= 1e-5
+    want_words, want_counts = pack_bits_reference(bx)
+    assert torch.equal(words, want_words) and torch.equal(counts, want_counts)
+    assert torch.equal(tan, tanimoto_similarity_reference(bx, by))
+
+
+@pytest.mark.cuda
+def test_mesh_acquisition_and_loop_on_card(cuda):
+    """An 8-shard mesh on the card (and over every card where there are
+    more): sharded_acquisition is a valid quadrature whose pool weights
+    equal the unsharded ones, and both schedules of Sober give valid
+    batches; gspmd's dataset rows equal mesh=None's."""
+    from sober_tpu_torch.core.pi import lfi
+    from sober_tpu_torch.gp.exact import fit_gp, posterior_max_mean
+    from sober_tpu_torch.parallel import make_mesh, sharded_acquisition
+    from sober_tpu_torch.priors import Uniform
+    from sober_tpu_torch.utils.weights import cleansing_weights
+
+    rng = np.random.default_rng(8)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    x = t(rng.uniform(-1, 1, (40, 3)))
+    y = torch.sin(3 * x[:, 0]) + 0.1 * t(rng.normal(size=40))
+    state = fit_gp(x, y)
+    eta = posterior_max_mean(state)
+    pool, pdf = t(rng.uniform(-1, 1, (16384, 3))), torch.full((16384,), 0.125, device=cuda)
+    meshes = [make_mesh(8, devices=[cuda] * 8)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    for mesh in meshes:
+        idx, w, weights = sharded_acquisition(mesh, state, eta, pool, pool[:128], pdf, 16)
+        assert bool((w >= 0).all()) and abs(float(w.sum()) - 1.0) < 1e-3
+        assert len(set(idx.tolist())) == 16 and int(idx.max()) < 16384
+        want = cleansing_weights(lfi(state, eta, pool) / pdf)
+        assert float((weights.gather() - want).abs().max()) <= 1e-6
+        for schedule in ("gspmd", "blockwise"):
+            box = torch.tensor([[-1.0] * 3, [1.0] * 3], device=cuda)
+            sober = Sober(Uniform(box, device=cuda), state, mesh=mesh, schedule=schedule)
+            xb = sober.next_batch(16384, 128, 16)
+            assert bool(torch.isfinite(xb).all()) and bool((xb.abs() <= 1 + 1e-6).all())
+        feats = t(rng.uniform(-1, 1, (2048, 3)))
+        prior = DatasetPrior(feats, torch.sin(3 * feats[:, 0]), device=cuda)
+        idx_m, _ = Sober(prior, state, seed=5, mesh=mesh).next_batch(256, 32, 8)
+        idx_1, _ = Sober(prior, state, seed=5).next_batch(256, 32, 8)
+        assert torch.equal(idx_m, idx_1)

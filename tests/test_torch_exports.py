@@ -27,7 +27,7 @@ from sober_tpu_torch.gp import fbgp as tf
 from sober_tpu_torch.interop import fbgp_from_numpy, fbgp_to_numpy
 
 SUBPACKAGES = ("", ".core", ".gp", ".ops", ".priors", ".utils", ".apps",
-               ".tasks", ".benchmarks")
+               ".tasks", ".benchmarks", ".parallel")
 NAMES = [(sub, name) for sub in SUBPACKAGES
          for name in importlib.import_module("sober_tpu" + sub).__all__]
 t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))

@@ -45,7 +45,7 @@ def test_scripts_import_without_jax():
     code = ("import glob, importlib.util, sys; "
             "paths = sorted(glob.glob('examples_torch/*.py') + glob.glob('tutorials_torch/*.py')"
             " + ['tools/acceptance_torch.py']); "
-            "assert len(paths) == 25, paths; "
+            "assert len(paths) == 26, paths; "
             "specs = [importlib.util.spec_from_file_location('m%d' % i, p) "
             "for i, p in enumerate(paths)]; "
             "[s.loader.exec_module(importlib.util.module_from_spec(s)) for s in specs]; "

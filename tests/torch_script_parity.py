@@ -46,7 +46,10 @@ class Recorded(Exception):
 
 def summary(v):
     """A value as the two packages can agree on it: an array by its shape
-    (by its values when it has at most 8), an object by its class name."""
+    (by its values when it has at most 8), a device mesh by its axis names
+    (its size is the host's device count), an object by its class name."""
+    if hasattr(v, "axis_names") and hasattr(v, "devices"):
+        return ("mesh", tuple(v.axis_names))
     if hasattr(v, "shape") and hasattr(v, "dtype"):
         a = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
         return ("array", a.shape, a.round(6).tolist() if a.size <= 8 else None)
