@@ -1,0 +1,5 @@
+"""next_batch_ms.screen: the reading of next_batch_ms in a screening cell, which reports no
+round_s end to end; BENCHMARK.json names the metric it moves there."""
+from sober_bench import registry
+
+read = registry.metric("next_batch_ms").read
