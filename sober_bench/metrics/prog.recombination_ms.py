@@ -1,0 +1,9 @@
+"""prog.recombination_ms: the stream milliseconds of the program's
+`recombination` span (core/rchq.py:recombination, from the Sober), a mean
+over the next_batch calls.
+Importing this file switches the program's recorder on (metrics/_program.py);
+the harness imports per-layer readers only for --trace 1, after the warm
+episode, so the plain runs never record."""
+from sober_bench import registry
+
+read = registry.metric("_program").reader("next_batch", span="recombination", scale=1e3)

@@ -26,6 +26,7 @@ import torch
 
 from ..ops.kmeans import kmeans_resampling
 from ..priors.continuous import Uniform
+from ..utils import timing
 from ..utils.weights import (cleansing_weights, deweighted_resampling,
                              weighted_resampling)
 from .rchq import _top
@@ -58,7 +59,8 @@ def dataset_candidates(w_all: torch.Tensor, x_all: torch.Tensor,
         x_cand = x_all
         w = w_all
     w = cleansing_weights(w)
-    idx_nys = deweighted_resampling(gen, w, n_nys)
+    with timing.span("sampler.nystrom"):
+        idx_nys = deweighted_resampling(gen, w, n_nys)
     return idx_sampled, x_cand, x_cand[idx_nys], w
 
 
@@ -72,10 +74,16 @@ def fused_iteration_dataset(pi: Callable, x_all: torch.Tensor,
 
     Returns (idx_global, x_batch, w_rchq, n_pos): the batch's dataset rows,
     features and quadrature weights, and the count of positive pool weights
-    (a device scalar)."""
-    idx_sampled, x_cand, x_nys, w = dataset_candidates(
-        pi(x_all), x_all, avail_mask, gen, n_rec, n_nys, thresh, prune)
-    idx, w_rchq = recombine(x_cand, x_nys, w, batch)
+    (a device scalar). The recorder's spans: next_batch.candidates, holding
+    sampler.pi (the sweep) and sampler.prune, then recombination."""
+    with timing.span("next_batch.candidates"):
+        with timing.span("sampler.pi"):
+            w_all = pi(x_all)
+        with timing.span("sampler.prune"):
+            idx_sampled, x_cand, x_nys, w = dataset_candidates(
+                w_all, x_all, avail_mask, gen, n_rec, n_nys, thresh, prune)
+    with timing.span("recombination"):
+        idx, w_rchq = recombine(x_cand, x_nys, w, batch)
     return idx_sampled[idx], x_cand[idx], w_rchq, torch.sum(w > 0)
 
 
@@ -117,13 +125,15 @@ def draw(prior, label: str, gen: torch.Generator, n: int, redraw: bool = False,
     sweep = (lambda fn, x: fn(x)) if sweep is None else sweep
     if label == "continuous":
         x = _continuous_draw(prior, gen, n, redraw)
-        return x, None, sweep(prior.pdf, x)
+        with timing.span("sampler.pdf"):
+            return x, None, sweep(prior.pdf, x)
     if label in ("binary", "categorical"):
         disc, xc, lp = prior, None, 0.0
     else:
         disc = prior.prior_disc
         xc = _continuous_draw(prior.prior_cont, gen, n, redraw)
-        lp = sweep(prior.prior_cont.logpdf, xc)
+        with timing.span("sampler.pdf"):
+            lp = sweep(prior.prior_cont.logpdf, xc)
     if label.endswith("categorical"):
         xd, idx = disc.sample_both(gen, n)
         lp = lp + disc.logpdf_indices(idx)
@@ -140,7 +150,8 @@ def draw(prior, label: str, gen: torch.Generator, n: int, redraw: bool = False,
 def pi_weights(pi: Callable, x: torch.Tensor, pdf: torch.Tensor) -> torch.Tensor:
     """cleanse(pi(x) / p(x)): a pool's importance weights
     (EmpiricalSampler.sampling, SOBER/_sampler.py:173-187)."""
-    return cleansing_weights(pi(x) / torch.clamp_min(pdf, 1e-38))
+    with timing.span("sampler.pi"):
+        return cleansing_weights(pi(x) / torch.clamp_min(pdf, 1e-38))
 
 
 def refill(draw: Callable, x: torch.Tensor, w: torch.Tensor, need: int,
@@ -149,17 +160,23 @@ def refill(draw: Callable, x: torch.Tensor, w: torch.Tensor, need: int,
     205-261): rounds 1..bound-1 each draw a fresh pool (`draw()` -> (x, w))
     and fill the zero-weight rows in place, while at most `need` rows are
     accepted. One host read of the accepted count per round, the first
-    included. Returns (x, w, none_accepted, reads); w is uniform when
-    nothing was accepted, cleansed otherwise."""
+    included; each round is a sampler.refill span, and the recorder's
+    counter sampler.n_pos adds the last count. Returns (x, w, none_accepted, reads); w is
+    uniform when nothing was accepted, cleansed otherwise."""
+    timing.count("host_reads.refill")
     n_pos, reads = int(torch.sum(w > 0)), 1
     for _ in range(1, bound):
         if n_pos > need:
             break
-        x2, w2 = draw()
-        fill = (w == 0) & (w2 > 0)
-        x = torch.where(fill[:, None], x2, x)
-        w = torch.where(fill, w2, w)
-        n_pos, reads = int(torch.sum(w > 0)), reads + 1
+        with timing.span("sampler.refill"):
+            timing.count("sampler.refill_rounds")
+            x2, w2 = draw()
+            fill = (w == 0) & (w2 > 0)
+            x = torch.where(fill[:, None], x2, x)
+            w = torch.where(fill, w2, w)
+            timing.count("host_reads.refill")
+            n_pos, reads = int(torch.sum(w > 0)), reads + 1
+    timing.count("sampler.n_pos", n_pos)
     if n_pos == 0:
         return x, torch.full_like(w, 1.0 / w.shape[0]), True, reads
     return x, cleansing_weights(w), False, reads

@@ -23,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..ops.car import car_eliminate
+from ..utils import timing
 from ..utils.linalg import symmetrize
 
 
@@ -55,6 +56,7 @@ def nystrom_basis(k_nys: torch.Tensor, n_test: int) -> torch.Tensor:
         return eigvecs[:, -n_test:].T
     n_sub = min(n_test + 32, n_nys)
     total = torch.nan_to_num(torch.sum(k_nys)).to(torch.float32)
+    timing.count("host_reads.nystrom_basis")
     seed = int(total.reshape(1).view(torch.int32)) & 0xFFFFFFFF
     gen = torch.Generator(device=k_nys.device).manual_seed(seed)
     omega = torch.randn((n_nys, n_sub), generator=gen, dtype=k_nys.dtype,
@@ -92,6 +94,7 @@ def null_basis(x: torch.Tensor, mu: torch.Tensor, n_elim: int,
     # in the halving tree the all-active case is the common one; there the
     # eigh would diagonalize an exactly-zero Gram, and any complement
     # columns are valid
+    timing.count("host_reads.null_basis")
     if bool(torch.any(inact > 0.5)):
         d_gram = (n0 * inact[:, None]).T @ n0
         lam, c_vecs = torch.linalg.eigh(0.5 * (d_gram + d_gram.T))
@@ -126,13 +129,20 @@ def _null_space_push(feats: torch.Tensor, mass: torch.Tensor,
     d_gram = (n0 * inact[:, None]).T @ n0
     lam, c_vecs = torch.linalg.eigh(0.5 * (d_gram + d_gram.T))
     w_null = n0 @ c_vecs[:, 0]
+    timing.count("host_reads._null_space_push")
     if float(obj @ w_null) < 0:
         w_null = -w_null
     plis = w_null > 0
     alpha = torch.where(plis, w / torch.where(plis, w_null, 1.0), float("inf"))
+    timing.count("host_reads._null_space_push", 2)
     idx = int(torch.argmin(alpha))
-    if not (bool(plis.any()) and math.isfinite(float(alpha[idx]))
-            and float(lam[0]) <= 1e-6):
+    if not bool(plis.any()):
+        return w
+    timing.count("host_reads._null_space_push")
+    if not math.isfinite(float(alpha[idx])):
+        return w
+    timing.count("host_reads._null_space_push")
+    if not float(lam[0]) <= 1e-6:
         return w
     w_new = torch.clamp_min(w - alpha[idx] * w_null, 0.0)
     w_new[idx] = 0.0
@@ -151,7 +161,9 @@ def _reduce_tree(phi_ext: torch.Tensor, obj_ext: Optional[torch.Tensor],
     obj_ext optional (n_pool+1,) negated objective, dummy 0; mu_ext
     (n_pool+1,) weights, dummy 0. Returns (idx (n_test+1,), w (n_test+1,)):
     the surviving pool indices with normalized weights, descending,
-    zero-weight slots last and given distinct unused pool indices."""
+    zero-weight slots last and given distinct unused pool indices. Each
+    halving round is a recombination.round span, the rest
+    recombination.final."""
     use_obj = obj_ext is not None
     dev = phi_ext.device
     n_keep = n_test + 1                    # columns kept per round
@@ -174,69 +186,71 @@ def _reduce_tree(phi_ext: torch.Tensor, obj_ext: Optional[torch.Tensor],
         return mu_out
 
     for _ in range(n_rounds):
-        cols = slots.reshape(e, m)                         # member x bary
-        w_cols = mu_ext[cols]                              # (e, m)
-        tot = torch.sum(w_cols, dim=0)                     # (m,)
-        safe_tot = torch.clamp_min(tot, 1e-30)
-        bary = torch.einsum("tem,em->tm", phi_ext[:, cols], w_cols) / safe_tot
-        mask = (tot > 0).to(phi_ext.dtype)
-        bary_obj = (torch.einsum("em,em->m", obj_ext[cols], w_cols) / safe_tot
-                    if use_obj else None)
-        mu_out = run_car(bary, bary_obj, mask, tot)
+        with timing.span("recombination.round"):
+            cols = slots.reshape(e, m)                         # member x bary
+            w_cols = mu_ext[cols]                              # (e, m)
+            tot = torch.sum(w_cols, dim=0)                     # (m,)
+            safe_tot = torch.clamp_min(tot, 1e-30)
+            bary = torch.einsum("tem,em->tm", phi_ext[:, cols], w_cols) / safe_tot
+            mask = (tot > 0).to(phi_ext.dtype)
+            bary_obj = (torch.einsum("em,em->m", obj_ext[cols], w_cols) / safe_tot
+                        if use_obj else None)
+            mu_out = run_car(bary, bary_obj, mask, tot)
 
-        w_kept, kept = _top(mu_out, n_keep)
-        tot_kept = tot[kept]
-        scale = torch.where(tot_kept > 0,
-                            w_kept / torch.clamp_min(tot_kept, 1e-30), 0.0)
-        kept_cols = cols[:, kept]                          # (e, n_keep)
-        new_w = w_cols[:, kept] * scale[None, :]
-        # only the dummy index repeats, and it is zeroed right after
-        mu_ext = torch.zeros_like(mu_ext).index_add_(
-            0, kept_cols.reshape(-1), new_w.reshape(-1))
-        mu_ext[dummy] = 0.0
-        # fp drift control: renormalize to the original mass (= 1)
-        total = torch.sum(mu_ext)
-        mu_ext = torch.where(total > 0,
-                             mu_ext / torch.where(total > 0, total, 1.0), mu_ext)
-        slots = kept_cols.reshape(-1)                      # (e * n_keep,)
+            w_kept, kept = _top(mu_out, n_keep)
+            tot_kept = tot[kept]
+            scale = torch.where(tot_kept > 0,
+                                w_kept / torch.clamp_min(tot_kept, 1e-30), 0.0)
+            kept_cols = cols[:, kept]                          # (e, n_keep)
+            new_w = w_cols[:, kept] * scale[None, :]
+            # only the dummy index repeats, and it is zeroed right after
+            mu_ext = torch.zeros_like(mu_ext).index_add_(
+                0, kept_cols.reshape(-1), new_w.reshape(-1))
+            mu_ext[dummy] = 0.0
+            # fp drift control: renormalize to the original mass (= 1)
+            total = torch.sum(mu_ext)
+            mu_ext = torch.where(total > 0,
+                                 mu_ext / torch.where(total > 0, total, 1.0), mu_ext)
+            slots = kept_cols.reshape(-1)                      # (e * n_keep,)
         e //= 2
 
-    # final stage: <= m slots, CAR on raw points
-    n_slots = slots.shape[0]
-    if n_slots < m:
-        slots = torch.cat([slots, torch.full((m - n_slots,), dummy, device=dev)])
-    w_slots = mu_ext[slots]
-    mask = (w_slots > 0).to(phi_ext.dtype)
-    bary_obj = obj_ext[slots] if use_obj else None
-    mu_out = run_car(phi_ext[:, slots], bary_obj, mask, w_slots)
+    with timing.span("recombination.final"):
+        # final stage: <= m slots, CAR on raw points
+        n_slots = slots.shape[0]
+        if n_slots < m:
+            slots = torch.cat([slots, torch.full((m - n_slots,), dummy, device=dev)])
+        w_slots = mu_ext[slots]
+        mask = (w_slots > 0).to(phi_ext.dtype)
+        bary_obj = obj_ext[slots] if use_obj else None
+        mu_out = run_car(phi_ext[:, slots], bary_obj, mask, w_slots)
 
-    # every pool index occupies at most one slot, so the survivors are the
-    # answer; only dummy slots repeat, and they carry zero weight
-    _, order = _top(mu_out, m)                             # full descending
-    slots_ord = slots[order]
-    idx_kept = slots_ord[:n_keep]
-    is_dummy = idx_kept == dummy
-    w_kept = torch.where(is_dummy, 0.0, mu_out[order[:n_keep]])
-    total = torch.sum(w_kept)
-    w_kept = torch.where(total > 0, w_kept / torch.where(total > 0, total, 1.0),
-                         w_kept)
-    # dummy survivors (fewer than n_keep support points needed) get DISTINCT
-    # pool indices from the non-kept non-dummy slots, or, if even those run
-    # out, the highest-weight index, all with weight 0
-    repl = slots_ord[n_keep:]                              # (m - n_keep,)
-    repl_valid = repl != dummy
-    n_repl = m - n_keep
-    pos = torch.where(repl_valid, torch.cumsum(repl_valid, 0) - 1, n_repl)
-    compact = torch.zeros(n_repl + 1, dtype=slots.dtype, device=dev)
-    compact = compact.scatter(0, pos, repl)[:n_repl]
-    n_valid = torch.sum(repl_valid)
-    rank = torch.cumsum(is_dummy, 0) - 1
-    last_resort = torch.where(idx_kept[0] == dummy, 0, idx_kept[0])
-    fallback = torch.where(rank < n_valid,
-                           compact[torch.clamp(rank, 0, n_repl - 1)],
-                           last_resort)
-    idx_kept = torch.where(is_dummy, fallback, idx_kept)
-    return idx_kept, w_kept
+        # every pool index occupies at most one slot, so the survivors are the
+        # answer; only dummy slots repeat, and they carry zero weight
+        _, order = _top(mu_out, m)                             # full descending
+        slots_ord = slots[order]
+        idx_kept = slots_ord[:n_keep]
+        is_dummy = idx_kept == dummy
+        w_kept = torch.where(is_dummy, 0.0, mu_out[order[:n_keep]])
+        total = torch.sum(w_kept)
+        w_kept = torch.where(total > 0, w_kept / torch.where(total > 0, total, 1.0),
+                             w_kept)
+        # dummy survivors (fewer than n_keep support points needed) get DISTINCT
+        # pool indices from the non-kept non-dummy slots, or, if even those run
+        # out, the highest-weight index, all with weight 0
+        repl = slots_ord[n_keep:]                              # (m - n_keep,)
+        repl_valid = repl != dummy
+        n_repl = m - n_keep
+        pos = torch.where(repl_valid, torch.cumsum(repl_valid, 0) - 1, n_repl)
+        compact = torch.zeros(n_repl + 1, dtype=slots.dtype, device=dev)
+        compact = compact.scatter(0, pos, repl)[:n_repl]
+        n_valid = torch.sum(repl_valid)
+        rank = torch.cumsum(is_dummy, 0) - 1
+        last_resort = torch.where(idx_kept[0] == dummy, 0, idx_kept[0])
+        fallback = torch.where(rank < n_valid,
+                               compact[torch.clamp(rank, 0, n_repl - 1)],
+                               last_resort)
+        idx_kept = torch.where(is_dummy, fallback, idx_kept)
+        return idx_kept, w_kept
 
 
 def local_reduce(phi: torch.Tensor, mu: torch.Tensor, num_pts: int,
@@ -293,40 +307,42 @@ def recombination(pts_rec: torch.Tensor, pts_nys: torch.Tensor, num_pts: int,
             f"init_weights has {init_weights.shape[0]} entries but pts_rec "
             f"has {n_pool} rows")
 
-    # Nystrom spectral basis; jitter would only shift eigenvalues, so
-    # symmetrize + NaN-scrub suffices
-    k_nys = symmetrize(torch.nan_to_num(kernel(pts_nys, pts_nys)))
-    u = nystrom_basis(k_nys, n_test)                       # (n_test, n_nys)
-    if mesh is None:
-        k_strip = kernel(pts_nys, pts_rec)                 # (n_nys, N)
-    else:
-        from ..parallel.mesh import sweep
+    # the recorder's recombination.basis: the eigenbasis, the strip, phi
+    with timing.span("recombination.basis"):
+        # Nystrom spectral basis; jitter would only shift eigenvalues, so
+        # symmetrize + NaN-scrub suffices
+        k_nys = symmetrize(torch.nan_to_num(kernel(pts_nys, pts_nys)))
+        u = nystrom_basis(k_nys, n_test)                       # (n_test, n_nys)
+        if mesh is None:
+            k_strip = kernel(pts_nys, pts_rec)                 # (n_nys, N)
+        else:
+            from ..parallel.mesh import sweep
 
-        k_strip = sweep(mesh, functools.partial(kernel, pts_nys), pts_rec, dim=1)
-    phi = u @ k_strip                                      # (n_test, N)
-    # one GLOBAL scale lifts a nearly degenerate kernel's rows next to the
-    # O(1) mass column while keeping the eigenvalue-weighted priority
-    phi = phi / torch.clamp_min(torch.max(torch.abs(phi)), 1e-30)
-    if extra_test_rows is not None:
-        extra = extra_test_rows.to(phi.dtype)
-        extra_scale = torch.clamp_min(
-            torch.max(torch.abs(extra), dim=1, keepdim=True).values, 1e-30)
-        phi = torch.cat([phi, extra / extra_scale], dim=0)
-    n_rows = phi.shape[0]                                  # num_pts - 1
-    phi_ext = torch.cat([phi, phi.new_zeros((n_rows, 1))], dim=1)
+            k_strip = sweep(mesh, functools.partial(kernel, pts_nys), pts_rec, dim=1)
+        phi = u @ k_strip                                      # (n_test, N)
+        # one GLOBAL scale lifts a nearly degenerate kernel's rows next to the
+        # O(1) mass column while keeping the eigenvalue-weighted priority
+        phi = phi / torch.clamp_min(torch.max(torch.abs(phi)), 1e-30)
+        if extra_test_rows is not None:
+            extra = extra_test_rows.to(phi.dtype)
+            extra_scale = torch.clamp_min(
+                torch.max(torch.abs(extra), dim=1, keepdim=True).values, 1e-30)
+            phi = torch.cat([phi, extra / extra_scale], dim=0)
+        n_rows = phi.shape[0]                                  # num_pts - 1
+        phi_ext = torch.cat([phi, phi.new_zeros((n_rows, 1))], dim=1)
 
-    if init_weights is None:
-        mu = torch.full((n_pool,), 1.0 / n_pool, dtype=phi.dtype,
-                        device=phi.device)
-    else:
-        mu = torch.clamp_min(init_weights, 0.0)
-        tot = torch.sum(mu)
-        mu = torch.where(tot > 0, mu / torch.where(tot > 0, tot, 1.0),
-                         torch.full_like(mu, 1.0 / n_pool))
-    mu_ext = torch.cat([mu, mu.new_zeros((1,))])
-    obj_ext = None
-    if calc_obj is not None:
-        obj = -calc_obj(pts_rec)
-        obj_ext = torch.cat([obj, obj.new_zeros((1,))])
+        if init_weights is None:
+            mu = torch.full((n_pool,), 1.0 / n_pool, dtype=phi.dtype,
+                            device=phi.device)
+        else:
+            mu = torch.clamp_min(init_weights, 0.0)
+            tot = torch.sum(mu)
+            mu = torch.where(tot > 0, mu / torch.where(tot > 0, tot, 1.0),
+                             torch.full_like(mu, 1.0 / n_pool))
+        mu_ext = torch.cat([mu, mu.new_zeros((1,))])
+        obj_ext = None
+        if calc_obj is not None:
+            obj = -calc_obj(pts_rec)
+            obj_ext = torch.cat([obj, obj.new_zeros((1,))])
     idx, w = _reduce_tree(phi_ext, obj_ext, mu_ext, n_rows, n_pool)
     return RecombinationResult(idx, w)

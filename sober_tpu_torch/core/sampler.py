@@ -45,6 +45,7 @@ from ..priors.continuous import Gaussian, TruncatedGaussian, Uniform
 from ..priors.discrete import (BinaryPrior, CategoricalPrior,
                                MixedBinaryPrior, MixedCategoricalPrior)
 from ..priors.wkde import WeightedKernelDensityEstimation
+from ..utils import timing
 from ..utils.prng import KeyRing
 from ..utils.weights import check_weights, deweighted_resampling
 from . import fused_sampling as fs
@@ -162,17 +163,18 @@ class EmpiricalSampler(RecombinationSampler):
         x_cand holds category indices in the discrete block. `verbose` is
         the JAX signature's and changes nothing, as there."""
         label = self.label
-        if label == "continuous":
-            self.prior = update_continuous_prior(
-                x_cand, weights, self.prior, self.prior.n_dims, gen=self.keys.next())
-        elif label == "binary":
-            self.prior = update_binary_prior(weights, x_cand, self.prior)
-        elif label == "categorical":
-            self.prior = update_categorical_prior(weights, x_cand, self.prior)
-        else:
-            self.prior = update_mixed_prior(x_cand, weights, self.prior,
-                                            label=label[len("mixed"):],
-                                            gen=self.keys.next())
+        with timing.span("sampler.update_prior"):
+            if label == "continuous":
+                self.prior = update_continuous_prior(
+                    x_cand, weights, self.prior, self.prior.n_dims, gen=self.keys.next())
+            elif label == "binary":
+                self.prior = update_binary_prior(weights, x_cand, self.prior)
+            elif label == "categorical":
+                self.prior = update_categorical_prior(weights, x_cand, self.prior)
+            else:
+                self.prior = update_mixed_prior(x_cand, weights, self.prior,
+                                                label=label[len("mixed"):],
+                                                gen=self.keys.next())
 
     def check_categorical(self) -> bool:
         return self.label in ("categorical", "mixedcategorical")
@@ -182,18 +184,21 @@ class EmpiricalSampler(RecombinationSampler):
         (SOBER/_sampler.py:173-187). A redraw from a Uniform (or a mixed
         prior's Uniform block) is pseudo-random, as the JAX pipeline's
         refill draws are; only the first draw follows (and advances) its
-        Sobol sequence."""
-        x, _, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw,
-                            self._sweep)
-        return x, fs.pi_weights(self._swept_pi, x, pdf)
+        Sobol sequence. The recorder's sampler.draw span, holding
+        sampler.pdf and sampler.pi."""
+        with timing.span("sampler.draw"):
+            x, _, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw,
+                                self._sweep)
+            return x, fs.pi_weights(self._swept_pi, x, pdf)
 
     def categorical_sampling(self, n_rec: int, redraw: bool = False):
         """A pool draw that also returns the rows with category indices in
         the discrete block, which the categorical update reads
         (SOBER/_sampler.py:189-203): (X, X_indices, w)."""
-        x, xi, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec, redraw,
-                             self._sweep)
-        return x, xi, fs.pi_weights(self._swept_pi, x, pdf)
+        with timing.span("sampler.draw"):
+            x, xi, pdf = fs.draw(self.prior, self.label, self.keys.next(), n_rec,
+                                 redraw, self._sweep)
+            return x, xi, fs.pi_weights(self._swept_pi, x, pdf)
 
     def _swept_pi(self, x: torch.Tensor) -> torch.Tensor:
         """pi over a pool, shard by shard on a mesh."""
@@ -235,9 +240,10 @@ class EmpiricalSampler(RecombinationSampler):
     def _select_nys(self, x_cand, weights, n_nys: int):
         """Nystrom subset: KMeans centroids for continuous domains, inverse-
         weight resampling otherwise (SOBER/_sampler.py:316-320)."""
-        if self.label == "continuous":
-            return fs.select_nys(self.keys.next(), x_cand, weights, n_nys)
-        return x_cand[deweighted_resampling(self.keys.next(), weights, n_nys)]
+        with timing.span("sampler.nystrom"):
+            if self.label == "continuous":
+                return fs.select_nys(self.keys.next(), x_cand, weights, n_nys)
+            return x_cand[deweighted_resampling(self.keys.next(), weights, n_nys)]
 
     def sampling_candidates(self, n_rec: int, n_nys: int,
                             verbose: bool = False):
@@ -263,6 +269,7 @@ class EmpiricalSampler(RecombinationSampler):
         self.last_reads = 1
         x, w = self._draw(n_rec)
         xs = self._split(x)
+        timing.count("host_reads.weight_health")
         if not bool(check_weights(w, self.thresh_initial)):
             *xs, w = self.recursive_sampling(n_rec, self.thresh_initial,
                                              need=self.thresh_initial)

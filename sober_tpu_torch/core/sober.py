@@ -12,8 +12,6 @@ family: the exact GP, the FBGP (gp/fbgp.py) and the warped BQ model
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -22,6 +20,7 @@ from ..gp.exact import (GPConfig, GPState, fit_gp_padded, init_params,
                         raw_params_from_state)
 from ..gp.fbgp import _VBQ_CFG, FBGPAcquisitionFunction, FitboGP, fbgp_refit
 from ..ops.tanimoto_gram import check_fingerprints
+from ..utils import timing
 from .pi import PI
 from .rckernel import RecombinationKernel
 from .sampler import EmpiricalSampler
@@ -79,6 +78,7 @@ class Sober(EmpiricalSampler):
         if self.is_bq:
             self.n_init = len(model.y_log)
         elif getattr(model, "mask", None) is not None:
+            timing.count("host_reads.n_init")
             self.n_init = int(model.mask.sum())
         else:
             self.n_init = len(model.fobs) if self.fbgp else int(model.y.shape[0])
@@ -96,20 +96,23 @@ class Sober(EmpiricalSampler):
         """Swap in a refit model, keeping the learned proposal
         (SOBER/_sober.py:74-82). n_init is pinned at construction: the
         stagnation heuristic measures progress since then."""
-        n_init = self.n_init
-        self.check_model_type(model)
-        self.n_init = n_init
-        self.pi, self.kernel = self.initialisation(model)
+        with timing.span("update_model"):
+            n_init = self.n_init
+            self.check_model_type(model)
+            self.n_init = n_init
+            self.pi, self.kernel = self.initialisation(model)
 
     # -- prior reset heuristic ----------------------------------------------
 
     def _targets(self) -> np.ndarray:
         """The observations the model holds, padding left out."""
         model = self.pi.model
+        timing.count("host_reads._targets")
         if self.is_bq:
             return model.y_log.cpu().numpy()
         y = (model.fobs if self.fbgp else model.y).cpu().numpy()
         if model.mask is not None:
+            timing.count("host_reads._targets")
             y = y[model.mask.cpu().numpy() > 0]
         return y
 
@@ -139,6 +142,7 @@ class Sober(EmpiricalSampler):
         """initialise_prior, with the reset's bookkeeping."""
         self.last_reset = True
         self.reset_count += 1
+        timing.count("sampler.resets")
         self.initialise_prior()
 
     # -- main entries --------------------------------------------------------
@@ -166,15 +170,17 @@ class Sober(EmpiricalSampler):
 
         verbose: print the stages, each timed by the host clock after a
         device sync (last_timings keeps them)."""
-        t0 = time.monotonic()
-        self.last_reset = False
-        if self.label != "dataset" and self.should_reset_prior(
-                batch_size, recycle_prior):
-            if verbose:
-                print("The prior was initialised.")
-            self._mark_reset()
-        return self._acquire(n_rec, n_nys, batch_size, calc_obj,
-                             return_weights, verbose, polish, t0)
+        with timing.timed("next_batch", self._block(verbose)) as call:
+            self.last_reset = False
+            if self.label != "dataset" and self.should_reset_prior(
+                    batch_size, recycle_prior):
+                if verbose:
+                    print("The prior was initialised.")
+                self._mark_reset()
+            out = self._acquire(n_rec, n_nys, batch_size, calc_obj,
+                                return_weights, verbose, polish)
+        self._total(call, verbose)
+        return out
 
     def step(self, x_obs, y_obs, n_rec: int, n_nys: int, batch_size: int,
              cfg: GPConfig | None = None, optimiser: str = "adam",
@@ -194,21 +200,23 @@ class Sober(EmpiricalSampler):
                 "Sober.step refits a plain exact GP and would replace this "
                 "sampler's FBGP/BQ model; refit it explicitly and call "
                 "update_model + next_batch")
-        t0 = time.monotonic()
-        self.last_reset = False
-        cfg = GPConfig() if cfg is None else cfg
-        x_obs = torch.as_tensor(x_obs, dtype=torch.float32, device=self.keys.device)
-        y_obs = torch.as_tensor(y_obs, dtype=torch.float32,
-                                device=self.keys.device).reshape(-1)
-        if self.label != "dataset" and self.should_reset_prior(
-                batch_size, recycle_prior, targets=y_obs.cpu().numpy()):
-            self._mark_reset()
-        params0 = (self._warm_start_params(cfg, x_obs.shape[1]) if warm_start
-                   else None)
-        self.update_model(fit_gp_padded(x_obs, y_obs, cfg, optimiser=optimiser,
-                                        bucket=bucket, params0=params0))
-        return self._acquire(n_rec, n_nys, batch_size, None, return_weights,
-                             False, polish, t0)
+        with timing.timed("step") as call:
+            self.last_reset = False
+            cfg = GPConfig() if cfg is None else cfg
+            x_obs = torch.as_tensor(x_obs, dtype=torch.float32, device=self.keys.device)
+            y_obs = torch.as_tensor(y_obs, dtype=torch.float32,
+                                    device=self.keys.device).reshape(-1)
+            if self.label != "dataset" and self.should_reset_prior(
+                    batch_size, recycle_prior, targets=self._host_targets(y_obs)):
+                self._mark_reset()
+            params0 = (self._warm_start_params(cfg, x_obs.shape[1]) if warm_start
+                       else None)
+            self.update_model(fit_gp_padded(x_obs, y_obs, cfg, optimiser=optimiser,
+                                            bucket=bucket, params0=params0))
+            out = self._acquire(n_rec, n_nys, batch_size, None, return_weights,
+                                False, polish)
+        self._total(call, False)
+        return out
 
     def step_fbgp(self, x_obs, y_obs, hyperprior, n_rec: int, n_nys: int,
                   batch_size: int, n_hypers: int = 1000,
@@ -247,61 +255,74 @@ class Sober(EmpiricalSampler):
                 f"hyperprior.n_ls={hyperprior.n_ls} does not match the base "
                 f"config ({'ARD, ' if cfg.ard else 'isotropic, '}needs "
                 f"n_ls={n_ls_needed}); construct RBFHyperPrior(n_ls={n_ls_needed})")
-        t0 = time.monotonic()
-        self.last_reset = False
-        if self.label != "dataset" and self.should_reset_prior(
-                batch_size, recycle_prior, targets=y_obs.cpu().numpy()):
-            self._mark_reset()
-        gp = FitboGP(x_obs, y_obs, alpha_factor=alpha_factor, optimiser=optimiser,
-                     bucket=bucket, cfg=cfg)
-        model = fbgp_refit(gp, hyperprior, n_hypers=n_hypers, n_nys=n_nys_qd,
-                           n_qd=n_qd, gen=self.keys.next())
-        self.update_model(model)
-        obj = None if acq_label is None else FBGPAcquisitionFunction(model, acq_label)
-        return self._acquire(n_rec, n_nys, batch_size, obj, return_weights,
-                             False, False, t0)
+        with timing.timed("step_fbgp") as call:
+            self.last_reset = False
+            if self.label != "dataset" and self.should_reset_prior(
+                    batch_size, recycle_prior, targets=self._host_targets(y_obs)):
+                self._mark_reset()
+            gp = FitboGP(x_obs, y_obs, alpha_factor=alpha_factor, optimiser=optimiser,
+                         bucket=bucket, cfg=cfg)
+            model = fbgp_refit(gp, hyperprior, n_hypers=n_hypers, n_nys=n_nys_qd,
+                               n_qd=n_qd, gen=self.keys.next())
+            self.update_model(model)
+            obj = None if acq_label is None else FBGPAcquisitionFunction(model, acq_label)
+            out = self._acquire(n_rec, n_nys, batch_size, obj, return_weights,
+                                False, False)
+        self._total(call, False)
+        return out
 
     # -- the acquisition -------------------------------------------------------
 
-    def _acquire(self, n_rec, n_nys, batch_size, calc_obj, return_weights,
-                 verbose, polish, t0):
-        """Candidates, recombination, the polish; the tail of next_batch
-        and step."""
-        def mark():
-            if verbose and self.keys.device.type == "cuda":
-                torch.cuda.synchronize(self.keys.device)
-            return time.monotonic()
+    def _block(self, verbose: bool):
+        """What a stage's span waits for before its clock stops: the
+        sampler's device with verbose, nothing otherwise."""
+        return self.keys.device if verbose else False
 
-        idx_global = None
-        if self.label == "dataset":
-            idx_global, x_batch, w_rchq = self._fused_dataset_iteration(
-                n_rec, n_nys, batch_size, self.dataset_pruning,
-                calc_obj=calc_obj)
-            # the one host read of the flag the Tanimoto Grams' packs raise,
-            # on each device that packed
-            for dev in ([self.prior.device] if self.mesh is None
-                        else set(self.mesh.devices.flat)):
-                check_fingerprints(dev)
-            t2 = mark()
-            self.last_timings = {"fused_iteration": t2 - t0}
-        else:
-            x_cand, x_nys, weights = self.sampling_candidates(n_rec, n_nys)
-            t1 = mark()
-            idx, w_rchq = self.sampling_recombination(
-                x_cand, x_nys, weights, batch_size, calc_obj=calc_obj)
-            x_batch = x_cand[idx]
-            self.last_npos = torch.sum(weights > 0)
-            t2 = mark()
-            self.last_timings = {"candidates": t1 - t0,
-                                 "recombination": t2 - t1}
-        self.last_path = "fused"
-        if self._polish_eligible(polish, calc_obj, return_weights):
-            x_batch = self._exploit_polish(x_batch)
-            self.last_timings["polish"] = mark() - t2
-        self.last_timings["total"] = mark() - t0
+    def _host_targets(self, y_obs: torch.Tensor) -> np.ndarray:
+        """The targets `step` is about to fit, on the host (one read)."""
+        timing.count("host_reads._targets")
+        return y_obs.cpu().numpy()
+
+    def _total(self, call, verbose: bool) -> None:
+        """last_timings' total from the call's span; printed with verbose."""
+        self.last_timings["total"] = call.seconds
         if verbose:
             print("--- " + ", ".join(f"{k} {v:.3e}" for k, v in
                                       self.last_timings.items()) + " [s]")
+
+    def _acquire(self, n_rec, n_nys, batch_size, calc_obj, return_weights,
+                 verbose, polish):
+        """Candidates, recombination, the polish; the tail of next_batch,
+        step and step_fbgp. last_timings takes each stage's span: host
+        seconds, after a device sync with verbose."""
+        block = self._block(verbose)
+        idx_global = None
+        if self.label == "dataset":
+            with timing.timed("next_batch.dataset", block) as stage:
+                idx_global, x_batch, w_rchq = self._fused_dataset_iteration(
+                    n_rec, n_nys, batch_size, self.dataset_pruning,
+                    calc_obj=calc_obj)
+                # the one host read of the flag the Tanimoto Grams' packs
+                # raise, on each device that packed
+                for dev in ([self.prior.device] if self.mesh is None
+                            else set(self.mesh.devices.flat)):
+                    check_fingerprints(dev)
+            self.last_timings = {"fused_iteration": stage.seconds}
+        else:
+            with timing.timed("next_batch.candidates", block) as cand:
+                x_cand, x_nys, weights = self.sampling_candidates(n_rec, n_nys)
+            with timing.timed("recombination", block) as stage:
+                idx, w_rchq = self.sampling_recombination(
+                    x_cand, x_nys, weights, batch_size, calc_obj=calc_obj)
+                x_batch = x_cand[idx]
+                self.last_npos = torch.sum(weights > 0)
+            self.last_timings = {"candidates": cand.seconds,
+                                 "recombination": stage.seconds}
+        self.last_path = "fused"
+        if self._polish_eligible(polish, calc_obj, return_weights):
+            with timing.timed("next_batch.polish", block) as stage:
+                x_batch = self._exploit_polish(x_batch)
+            self.last_timings["polish"] = stage.seconds
         if return_weights:
             return w_rchq, x_batch
         if idx_global is not None:

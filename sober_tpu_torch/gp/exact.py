@@ -26,6 +26,7 @@ import torch
 
 from ..config import resolve_device
 from ..ops.kernels import _NO_LENGTHSCALE, KERNELS, Kernel
+from ..utils import timing
 from ..utils.linalg import jitter_cholesky
 
 
@@ -213,8 +214,13 @@ class _RescuedCholesky(torch.autograd.Function):
         # jnp.linalg.cholesky factors the symmetrized input; so does this
         a = 0.5 * (a + a.mT)
         chol, info = torch.linalg.cholesky_ex(a)
-        bad = bool(info > 0) or bool(torch.isnan(torch.diagonal(chol)).any())
+        timing.count("host_reads.cholesky")
+        bad = bool(info > 0)
+        if not bad:
+            timing.count("host_reads.cholesky")
+            bad = bool(torch.isnan(torch.diagonal(chol)).any())
         if bad:
+            timing.count("fit.cholesky_retries")
             eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
             chol, _ = torch.linalg.cholesky_ex(a + extra * eye)
         ctx.save_for_backward(chol)
@@ -243,6 +249,7 @@ def neg_mll(params: GPParams, x: torch.Tensor, y: torch.Tensor,
             cfg: GPConfig, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Negative (MAP) marginal log likelihood per datum, as gpytorch's
     ExactMarginalLogLikelihood. `mask` marks real rows of a padded buffer."""
+    timing.count("fit.evals")
     kernel, noise = materialize(params, cfg)
     resid = y - mean_value(cfg, params.mean_params, x)
     if mask is not None:
@@ -298,7 +305,8 @@ def _detached(params: GPParams) -> GPParams:
 
 
 def _loss(params: GPParams, x, y, cfg, mask) -> float:
-    with torch.no_grad():
+    with timing.span("fit.loss"), torch.no_grad():
+        timing.count("host_reads._loss")
         return float(neg_mll(params, x, y, cfg, mask))
 
 
@@ -324,23 +332,29 @@ def _plateau(value: float, best: float) -> bool:
 def _fit_adam(params0: GPParams, x, y, cfg: GPConfig, mask=None) -> GPParams:
     """Adam with best-iterate tracking and a 10-step plateau stop
     (reference: train_GP_with_Adam, SOBER/_gp.py:128-155). torch's Adam
-    defaults (betas 0.9/0.999, eps 1e-8) are optax.adam's."""
+    defaults (betas 0.9/0.999, eps 1e-8) are optax.adam's. Each step is
+    three spans, fit.loss, fit.grad and fit.update, that tile it."""
     params = _leaves(params0)
     opt = torch.optim.Adam(param_tensors(params), lr=cfg.fit_lr)
     best_loss, best_params, n_plateau = math.inf, _detached(params0), 0
     for _ in range(cfg.fit_iters):
-        loss = neg_mll(params, x, y, cfg, mask)
-        value = float(loss)
-        _set_grads(params, loss, cfg)
-        improved = math.isfinite(value) and value < best_loss
-        if improved:
-            best_params = _detached(params)
+        timing.count("fit.steps")
+        with timing.span("fit.loss"):
+            loss = neg_mll(params, x, y, cfg, mask)
+            timing.count("host_reads.loss")
+            value = float(loss)
+        with timing.span("fit.grad"):
+            _set_grads(params, loss, cfg)
+            improved = math.isfinite(value) and value < best_loss
+            if improved:
+                best_params = _detached(params)
         # no improvement over the best counts toward the window; a step that
         # regresses too (best-iterate tracking makes that safe)
         n_plateau = n_plateau + 1 if _plateau(value, best_loss) else 0
         if improved:
             best_loss = value
-        opt.step()
+        with timing.span("fit.update"):
+            opt.step()
         if n_plateau >= 10:
             break
     params = _detached(params)
@@ -355,20 +369,41 @@ def _fit_lbfgs(params0: GPParams, x, y, cfg: GPConfig, mask=None) -> GPParams:
     """L-BFGS with a strong-Wolfe line search (the "BoTorch" path of
     SOBER/_gp.py:174-175). optax's zoom search has no exact torch twin:
     torch's LBFGS takes one iteration per step() here, with history 10, and
-    best-iterate tracking plus a 2-step plateau stop run around it."""
+    best-iterate tracking plus a 2-step plateau stop run around it. A step
+    is tiled by spans: each evaluation's fit.loss and fit.grad, and the
+    optimiser's own work around them, a fit.update span each."""
     params = _leaves(params0)
     opt = torch.optim.LBFGS(param_tensors(params), lr=1, max_iter=1, max_eval=8 + 1,
                             history_size=10, line_search_fn="strong_wolfe")
+    update = [timing.NOOP]          # the open fit.update span
+
+    def open_update():
+        update[0] = timing.span("fit.update")
+        update[0].__enter__()
+
+    def close_update():
+        update[0].__exit__(None, None, None)
+        update[0] = timing.NOOP
 
     def closure():
-        loss = neg_mll(params, x, y, cfg, mask)
-        _set_grads(params, loss, cfg)
+        close_update()
+        with timing.span("fit.loss"):
+            loss = neg_mll(params, x, y, cfg, mask)
+        with timing.span("fit.grad"):
+            _set_grads(params, loss, cfg)
+        open_update()
         return loss
 
     best_loss, best_params, n_plateau = math.inf, _detached(params0), 0
     for _ in range(max(cfg.fit_iters // 4, 10)):
-        before = _detached(params)
-        value = float(opt.step(closure).detach())   # the loss at `before`
+        timing.count("fit.steps")
+        open_update()
+        try:
+            before = _detached(params)
+            timing.count("host_reads.loss")
+            value = float(opt.step(closure).detach())   # the loss at `before`
+        finally:
+            close_update()
         improved = math.isfinite(value) and value < best_loss
         if improved:
             best_params = before
@@ -398,6 +433,7 @@ def fit_params(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig,
     loss0 = _loss(params0, x, y, cfg, mask)
     if math.isfinite(loss) and loss <= loss0 + 1e-6:
         return p_lbfgs
+    timing.count("fit.adam_fallbacks")
     return _fit_adam(params0, x, y, cfg, mask)
 
 
@@ -459,19 +495,22 @@ def fit_gp(x: torch.Tensor, y: torch.Tensor, cfg: Optional[GPConfig] = None,
            optimiser: str = "lbfgs", mask: Optional[torch.Tensor] = None,
            params0: Optional[GPParams] = None, **cfg_kwargs) -> GPState:
     """One-call GP fit: standardize y, MAP-fit the hypers on that scale and
-    return the fitted state (reference update_gp, SOBER/_gp.py:189-209)."""
+    return the fitted state (reference update_gp, SOBER/_gp.py:189-209).
+    The recorder's `fit` span: the optimiser's steps, then fit.state."""
     if cfg is None:
         cfg = GPConfig(**cfg_kwargs)
-    y = y.reshape(-1)
-    y_fit = y
-    if cfg.standardize_y:
-        m, sd = _masked_stats(y, mask)
-        y_fit = (y - m) / sd
-        if mask is not None:
-            y_fit = y_fit * mask
-    params = fit_params(x, y_fit, cfg, params0=params0, optimiser=optimiser,
-                        mask=mask)
-    return build_state(params, x, y, cfg, mask=mask)
+    with timing.span("fit"):
+        y = y.reshape(-1)
+        y_fit = y
+        if cfg.standardize_y:
+            m, sd = _masked_stats(y, mask)
+            y_fit = (y - m) / sd
+            if mask is not None:
+                y_fit = y_fit * mask
+        params = fit_params(x, y_fit, cfg, params0=params0, optimiser=optimiser,
+                            mask=mask)
+        with timing.span("fit.state"):
+            return build_state(params, x, y, cfg, mask=mask)
 
 
 # ----------------------------------------------------------------------------

@@ -9,6 +9,7 @@ import torch
 
 from ..ops.kernels import tanimoto_gram
 from ..ops.tanimoto_gram import check_fingerprints
+from ..utils import timing
 from .exact import GPConfig, GPState, fit_gp_padded
 
 
@@ -26,10 +27,12 @@ def fit_tanimoto_gp(x: torch.Tensor, y: torch.Tensor,
     """TanimotoGP (SOBER/_drug_modelling.py:103-113): ScaleKernel(Tanimoto)
     exact GP with standardized targets and no hyperpriors, fitted on a
     bucket-padded observation buffer. Raises ValueError if x holds a value
-    other than 0 or 1 (`check_fingerprints`)."""
+    other than 0 or 1 (`check_fingerprints`). The check is inside the
+    recorder's `fit` span, which fit_gp's joins."""
     cfg = GPConfig(kernel_name="tanimoto", noise_lo=noise_lo,
                    noise_hi=noise_hi, train_lik=True, standardize_y=True,
                    use_priors=False, fit_iters=fit_iters)
-    state = fit_gp_padded(x, y, cfg, optimiser=optimiser, bucket=bucket)
-    check_fingerprints(state.x.device)
+    with timing.span("fit"):
+        state = fit_gp_padded(x, y, cfg, optimiser=optimiser, bucket=bucket)
+        check_fingerprints(state.x.device)
     return state

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils import timing
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sober_tpu_torch"
@@ -101,16 +103,19 @@ def build() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use. The first call's
+    build or load is the recorder's `setup.library` span, kept whether the
+    recorder is on or off."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.sober_cuda_error_string.argtypes = (ctypes.c_int,)
-        lib.sober_cuda_error_string.restype = ctypes.c_char_p
+        with timing.timed("setup.library", keep=True):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.sober_cuda_error_string.argtypes = (ctypes.c_int,)
+            lib.sober_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 

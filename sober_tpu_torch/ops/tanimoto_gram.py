@@ -33,6 +33,7 @@ from typing import Callable
 
 import torch
 
+from ..utils import timing
 from ._build import check, load_library
 
 
@@ -123,6 +124,7 @@ def check_fingerprints(device=None) -> None:
     if flag is None:
         return
     check_fingerprints.reads += 1
+    timing.count("host_reads.check_fingerprints")
     if int(flag) != 0:                      # host sync
         flag.zero_()
         raise ValueError("tanimoto: fingerprints must hold only 0 and 1")

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..config import settings
+from . import timing
 
 
 def remove_anomalies(y: torch.Tensor, floor: float | None = None) -> torch.Tensor:
@@ -55,11 +56,16 @@ def jitter_cholesky(a: torch.Tensor, initial_jitter: float = 0.0,
 
     def attempt(jit):
         chol, info = torch.linalg.cholesky_ex(a + jit * eye)
-        return chol, bool(info == 0) and bool(torch.isfinite(chol).all())
+        timing.count("host_reads.jitter_cholesky")
+        if not bool(info == 0):
+            return chol, False
+        timing.count("host_reads.jitter_cholesky")
+        return chol, bool(torch.isfinite(chol).all())
 
     chol, ok = attempt(jit_val)
     tries = 0
     while not ok and tries < max_tries:
+        timing.count("host_reads.jitter_cholesky")
         jit_val = 1e-6 * scale if bool(jit_val == 0.0) else jit_val * 10.0
         chol, ok = attempt(jit_val)
         tries += 1
