@@ -78,6 +78,41 @@ def checked_rounds(seed: int, rounds: int, n: int, answer_episodes: int = 0,
     return pick | {(e, r) for e in range(answer_episodes) for r in range(answer_rounds)}
 
 
+def hands_over(k: int, in_phase: int, elapsed: float, seconds: float,
+               mean_round: float) -> bool:
+    """Whether the traced window's phase k hands over to the next before the
+    round that starts `elapsed` seconds into a window of `seconds`. A phase
+    keeps at least MIN_PHASE_ROUNDS rounds; after them it hands over once
+    its share of the window has passed, or once the time left would not
+    give every later phase its MIN_PHASE_ROUNDS rounds at the window's mean
+    round so far (episode starts and refill storms included)."""
+    later = len(TRACE_PHASES) - 1 - k
+    if later == 0 or in_phase < MIN_PHASE_ROUNDS:
+        return False
+    share_end = seconds * sum(share for _, share in TRACE_PHASES[:k + 1])
+    return elapsed >= share_end or seconds - elapsed < later * MIN_PHASE_ROUNDS * mean_round
+
+
+def stretch_device(stretch) -> dict | None:
+    """The traced line's busy_s and window_s, from the profiled stretch;
+    None where there is no stretch or no device work in it."""
+    if stretch is None or stretch.n_device_events == 0 or not stretch.busy_s > 0:
+        return None
+    return {"busy_s": stretch.busy_s, "window_s": stretch.window_s}
+
+
+def stretch_calls(entries: dict) -> dict:
+    """The profiled stretch's calls of each public entry, counted by the
+    whole-number sizes of their shape (car: {"m=400,q=200": 36})."""
+    out = {}
+    for label, calls in entries.items():
+        tally = out.setdefault(label, {})
+        for shape, _ in calls:
+            key = ",".join(f"{k}={v}" for k, v in shape.items() if isinstance(v, int))
+            tally[key] = tally.get(key, 0) + 1
+    return out
+
+
 @contextlib.contextmanager
 def reference_precision():
     """float32 matmuls without TF32 inside the block, restored after."""
@@ -107,12 +142,14 @@ class Readings:
     numbers, as end_to_end gives them). `work` tallies each episode of
     the window, traced or not: its campaign, rounds, optimiser steps (the
     fits', the first fit's included), the sampler's host reads (one a refill
-    round, and one a draw's health check) and proposal resets."""
+    round, and one a draw's health check) and proposal resets. `phases`
+    gives the rounds each phase of the window had, and `overrun_s` how far
+    past its deadline the window closed."""
 
     def __init__(self):
         self.spans, self.span_rounds, self.reads = {}, {}, []
         self.entries, self.stretch, self.work = {}, None, []
-        self.e2e = {}
+        self.e2e, self.phases, self.overrun_s = {}, {}, 0.0
 
 
 class Cell:
@@ -161,9 +198,12 @@ class Cell:
 
     def measure(self, seed: int, seconds: float, entries=None):
         """The window. Without `entries` (a dict for probe.EntryRanges) the
-        plain run; with it, the traced run's three phases. Returns (window
-        seconds, round start times and the window's end by
-        time.perf_counter, records, peak bytes, Readings)."""
+        plain run, which closes at its first round start past the deadline;
+        with it, the traced run's three phases (hands_over), which closes
+        there too once the profiled stretch has had MIN_PHASE_ROUNDS rounds,
+        and runs on by whole rounds until then. Returns (window seconds,
+        round start times and the window's end by time.perf_counter,
+        records, peak bytes, Readings)."""
         rounds, spec = self.traffic["rounds"], self.workload["check"]
         # the rounds whose answers (pi, weights, moments) a cell compares:
         # every round, or its episodes' first few (PERF.md section 4)
@@ -171,12 +211,17 @@ class Cell:
         check = checked_rounds(seed, rounds, spec["rounds"], spec.get("answer_episodes", 0),
                                answer_rounds)
         order = campaign_order(seed, self.traffic["campaigns"])
-        phases = (("plain", 1.0),) if entries is None else TRACE_PHASES
-        edges = np.cumsum([share for _, share in phases]) * seconds
+        traced = entries is not None
+        phases = TRACE_PHASES if traced else (("plain", 1.0),)
         readings = Readings()
         records, starts, phase, prof, ranges = [], [], None, None, None
         k, in_phase = 0, 0
         p = self.probe
+
+        def closes(now):
+            return now >= deadline and (not traced or (
+                k == len(phases) - 1 and in_phase >= MIN_PHASE_ROUNDS))
+
         steps = [0]
         hook = register_optimizer_step_post_hook(
             lambda *_: steps.__setitem__(0, steps[0] + 1))
@@ -194,16 +239,14 @@ class Cell:
             readings.work.append(tally)
             for r in range(rounds):
                 now = time.perf_counter()
-                if now >= deadline:
+                if closes(now):
                     stop = True
                     break
-                # a phase ends when its share of the window has passed and it
-                # has had MIN_PHASE_ROUNDS rounds: one round of many refills
-                # can outlast a share
-                due = min(int(np.searchsorted(edges, now - t0, side="right")), len(phases) - 1)
-                if due > k and in_phase >= MIN_PHASE_ROUNDS:
+                if traced and hands_over(k, in_phase, now - t0, seconds,
+                                         (now - t0) / max(len(starts), 1)):
                     k, in_phase = k + 1, 0
                 in_phase += 1
+                readings.phases[phases[k][0]] = in_phase
                 if phases[k][0] != phase:
                     phase = phases[k][0]
                     p.spans = readings.spans if phase == "spans" else None
@@ -223,8 +266,9 @@ class Cell:
             tally["fit_steps"] = steps[0]
             tally["resets"] = getattr(ep.sober, "reset_count", 0)
             episode += 1
-            stop = stop or time.perf_counter() >= deadline
+            stop = stop or closes(time.perf_counter())
         t_stop = time.perf_counter()
+        readings.overrun_s = t_stop - deadline
         peak = (torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == "cuda" else 0)
         hook.remove()
@@ -315,6 +359,12 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_process: float) -> 
         print(f"sober_bench: modules {bad} were loaded; the benchmark runs the "
               "port without jax or the JAX package", file=sys.stderr)
         return {}, 3
+    stretch = stretch_device(readings.stretch) if trace else None
+    if trace and stretch is None:
+        print(f"sober_bench: the traced window's profiled stretch holds no device work "
+              f"(rounds a phase {readings.phases}, {readings.overrun_s:.3f} s past the "
+              "deadline); no result", file=sys.stderr)
+        return {}, 4
     e2e = end_to_end(window_s, starts, t_stop, peak, setup_s)
     readings.e2e = e2e
     torch.cuda.empty_cache()
@@ -332,10 +382,14 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_process: float) -> 
               "memory_peak_bytes": int(peak)}
     out = {"correct": correct, "attempted": len(starts), "failed": failed,
            "metrics": metrics, "device": device}
-    if trace and readings.stretch is not None:
-        device.update(busy_s=readings.stretch.busy_s, window_s=readings.stretch.window_s)
+    if trace:
+        device.update(stretch)
         out["breakdown"] = {"device_ops": readings.stretch.device_ops,
                             "idle_gaps": readings.stretch.idle_gaps}
+        # how the traced window went: the rounds each phase had, how far it
+        # ran past its deadline, and the entries' calls in its stretch
+        out.update(phases=readings.phases, overrun_s=readings.overrun_s,
+                   stretch_calls=stretch_calls(readings.entries))
     # what the window did, episode by episode: two runs of one seed do the
     # same work in the rounds that both reach
     out["work"] = readings.work

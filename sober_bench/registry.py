@@ -3,8 +3,11 @@
 A cell is ``workloads/<name>.json``; its ``config`` names
 ``configs/<config>.json``, whose ``loop`` names ``loops/<loop>.py`` and whose
 ``module`` is the objective or data loader beside it; a per-layer metric is
-``metrics/<name>.py``. Modules are loaded from their files, so a name may
-hold dots and dashes."""
+``metrics/<name>.py``, or, where that file is missing, the reader of its name
+without the last dotted part: ``next_batch_ms.screen`` is ``next_batch_ms``
+read in a cell that reports another end-to-end metric, and BENCHMARK.json
+names the metric it moves there. Modules are loaded from their files, so a
+name may hold dots and dashes."""
 from __future__ import annotations
 
 import importlib.util
@@ -56,7 +59,13 @@ def loop(name: str):
 
 
 def metric(name: str):
-    return load_module(ROOT / "metrics" / f"{name}.py")
+    path = ROOT / "metrics" / f"{name}.py"
+    if path.is_file():
+        return load_module(path)
+    base = name.rpartition(".")[0]
+    if not base:
+        raise FileNotFoundError(f"no metric named {name!r} ({path})")
+    return metric(base)
 
 
 def benchmark() -> dict:

@@ -6,8 +6,9 @@ Prints, as the last line of standard output, one JSON object with the
 keys correct, attempted, failed, metrics, device (and with --trace 1,
 breakdown), then `checks`: each compared number beside its limit, which also
 end standard error. Exits 2 without a result where no CUDA device is
-visible, or fewer than the cell asks for, and 3 where jax, jaxlib, flax or
-the JAX package was loaded.
+visible, or fewer than the cell asks for, 3 where jax, jaxlib, flax or the
+JAX package was loaded, and 4 where a traced run's profiled stretch holds
+no device work.
 """
 import time
 

@@ -143,3 +143,14 @@ def test_a_screening_cell_reads_its_rounds_and_layers_per_layer():
         assert registry.metric(name + ".screen").read(r) == registry.metric(name).read(r)
     assert registry.metric("car.roofline_pct.screen").ENTRY == \
         registry.metric("car.roofline_pct").ENTRY
+
+
+def test_a_reader_under_a_cell_suffix_needs_no_file_of_its_own():
+    # next_batch_ms.screen has no file: it is next_batch_ms's reader, while
+    # round_s.screen, which reads an end-to-end figure, keeps its own
+    assert registry.metric("next_batch_ms.screen") is registry.metric("next_batch_ms")
+    assert registry.metric("prog.pi_ms.screen") is registry.metric("prog.pi_ms")
+    assert registry.metric("fit_ms.exact") is not registry.metric("fit_ms.tanimoto")
+    assert registry.metric("round_s.screen").__name__.endswith("round_s.screen.py")
+    with pytest.raises(FileNotFoundError):
+        registry.metric("no_such_ms.screen")
